@@ -1,8 +1,10 @@
 """Card smoke test of the PyTorch port: builds the CUDA kernels, holds each
-against its plain PyTorch version at the main path's finest shapes, then
-runs the per-pair stereo path (`match_pair`) at the full width of the
-`myself` preset on one GPU and checks its cloud against the scene's
-analytic surface.
+against its plain PyTorch version at its path's full shapes, then runs
+each path that carries a kernel on one GPU: the per-pair stereo path
+(`match_pair`) at the full width of the `myself` preset, the tensor-core
+sweep's entry point (`ncc_sweep_match_mxu`), bundle adjustment at the
+bench size and the feature front end at full image size, each checked
+against its own criteria.
 
     python3 chip_smoke.py
 
@@ -10,12 +12,20 @@ Phases (any failure raises; the exit code is then non-zero):
   1. versions, card name and power limit; refuses to run without CUDA
   2. nvcc build of reconstruction_tpu_torch/csrc/*.cu (into
      reconstruction_tpu_torch/_build/)
-  3. K1 sweep, K3 cost volume, K2 refine vs their plain versions at
-     H=1920, W=1280, C=3, timed with CUDA events
+  3. K1 sweep, K3 cost volume, K2 refine, K5 tensor-core sweep vs their
+     plain versions at H=1920, W=1280, C=3 (K5 also vs K1), K4 coupling
+     vs its plain version at E=18, O=8, M=65,536, C=16; timed with CUDA
+     events
   4. match_pair on a rendered 1280x1920 two-view scene, preset "myself",
      with the kernels' launch counts, per-level times and cloud metrics,
      and the same path on a small scene against the plain CPU path
-  5. the last line: {"ok": true, "device": {...}}
+  5. ncc_sweep_match_mxu at the 64-shift 1920x1280 cell, equal to
+     ncc_sweep_match (K1) on the same inputs
+  6. bundle_adjust at 16 cameras, 65,536 points, 8 observations per
+     point: cost drop, aligned point error, determinism, ms per ba_step
+  7. Harris, colour descriptors, tracks and structure-only BA on three
+     rendered 1280x1920 views (surface error), and at 160x120 card vs CPU
+  8. the last line: {"ok": true, "device": {...}}
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -63,7 +73,9 @@ def phase_kernels(card: str) -> dict:
     """Each kernel against its plain version on the card, same inputs."""
     import torch
     from reconstruction_tpu_torch.config import NOMATCH
+    from reconstruction_tpu_torch.ops import ba_coupling as K4
     from reconstruction_tpu_torch.ops import ncc_sweep as K13
+    from reconstruction_tpu_torch.ops import ncc_sweep_mxu as K5
     from reconstruction_tpu_torch.ops import refine as K2
     from reconstruction_tpu_torch.stereo.margins import find_margin, inner_box
     from reconstruction_tpu_torch.stereo.matching import _centered, ncc_moments
@@ -179,6 +191,49 @@ def phase_kernels(card: str) -> dict:
     log(f"K2 refine one sweep {H}x{W}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms ({card})")
     results["refine_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # K5: the tensor-core sweep on K1's 64-shift case, against its plain
+    # version and against K1 (one 128-shift chunk; the bounds gate the rest).
+    args = margs + (valid, valid, lo, hi, r)
+    s5, t5 = K5.ncc_sweep_mxu(*args)
+    sp, tp = K5.ncc_sweep_mxu_plain(*args)
+    s1, t1 = K13.ncc_sweep(*args)
+    torch.cuda.synchronize()
+    equal = torch.equal(s5, sp) and torch.equal(t5, tp)
+    equal_k1 = torch.equal(s5, s1) and torch.equal(t5, t1)
+    err = max(float((s5 - sp).abs().max()), float((t5 - tp).abs().max()))
+    log(f"K5 ncc_sweep_mxu: bit-equal to plain={equal} to K1={equal_k1} "
+        f"max_abs_err={err}")
+    if not (equal and equal_k1):
+        raise AssertionError("K5 differs from its plain version or from K1")
+    ms = cuda_ms(lambda: K5.ncc_sweep_mxu(*args), 10)
+    ms_k1 = cuda_ms(lambda: K13.ncc_sweep(*args), 10)
+    plain_ms = cuda_ms(lambda: K5.ncc_sweep_mxu_plain(*args), 2)
+    log(f"K5 ncc_sweep_mxu 64 shifts {H}x{W}: kernel {ms:.3f} ms, K1 "
+        f"{ms_k1:.3f} ms, plain {plain_ms:.3f} ms ({card})")
+    results["ncc_sweep_mxu"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    k1_ms=ms_k1)
+
+    # K4: the BA coupling contraction at the bench shape, some cams -1.
+    E, O, M, C = 18, 8, 1 << 16, 16
+    He = torch.randn((E, O, M), generator=gen, device=dev)
+    cam = torch.randint(0, C, (O, M), generator=gen, device=dev,
+                        dtype=torch.int32)
+    cam[:, torch.randint(0, M, (M // 16,), generator=gen, device=dev)] = -1
+    Wk = K4.ba_coupling(He, cam, C)
+    Wp = K4.ba_coupling_plain(He, cam, C)
+    torch.cuda.synchronize()
+    equal = torch.equal(Wk, Wp)
+    err = float((Wk - Wp).abs().max())
+    log(f"K4 ba_coupling: bit-equal={equal} max_abs_err={err}")
+    if not equal:
+        raise AssertionError("K4 differs from its plain version")
+    ms = cuda_ms(lambda: K4.ba_coupling(He, cam, C), 20)
+    plain_ms = cuda_ms(lambda: K4.ba_coupling_plain(He, cam, C), 5)
+    gbs = (He.numel() * 4 + cam.numel() * 4 + Wk.numel() * 4) / (ms * 1e6)
+    log(f"K4 ba_coupling E={E} O={O} M={M} C={C}: kernel {ms:.4f} ms "
+        f"({gbs:.0f} GB/s), plain {plain_ms:.4f} ms ({card})")
+    results["ba_coupling"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     return results
 
 
@@ -290,6 +345,210 @@ def phase_small_reference() -> dict:
                 within_1=within1)
 
 
+def phase_mxu_path(card: str) -> dict:
+    """The tensor-core sweep's entry point on the bench cell's inputs
+    (64 shifts, 1920x1280x3, r=2), against `ncc_sweep_match` (K1)."""
+    import torch
+    from reconstruction_tpu_torch.ops import ncc_sweep_mxu as K5
+    from reconstruction_tpu_torch.ops.ncc_sweep_mxu import ncc_sweep_match_mxu
+    from reconstruction_tpu_torch.stereo.matching import ncc_sweep_match
+
+    dev = torch.device("cuda")
+    H, W, C = 1920, 1280, 3
+    gen = torch.Generator(device=dev).manual_seed(11)
+    base = torch.randint(0, 256, (H, W + 64, C), generator=gen, device=dev)
+    imgL = base[:, 40:W + 40].float().contiguous()
+    imgR = base[:, :W].float().contiguous()
+    valid = torch.ones((H, W), dtype=torch.bool, device=dev)
+    x = torch.arange(W, dtype=torch.int32, device=dev)[None, :].expand(H, W)
+    lo = x.contiguous()
+    hi = torch.clamp(x + 63, max=W - 1).contiguous()
+    K5.ncc_sweep_mxu.launches = 0
+    torch.cuda.synchronize()
+    res = ncc_sweep_match_mxu(imgL, imgR, valid, valid, lo, hi, 2)
+    torch.cuda.synchronize()
+    launches = K5.ncc_sweep_mxu.launches
+    if launches <= 0:
+        raise AssertionError("ncc_sweep_match_mxu launched no K5")
+    ref = ncc_sweep_match(imgL, imgR, valid, valid, lo, hi, 2)
+    same = (torch.equal(res.disparity, ref.disparity)
+            and torch.equal(res.score, ref.score))
+    true_d = float((res.disparity == 40).float().mean())   # imgL(x) = imgR(x + 40)
+    log(f"ncc_sweep_match_mxu {H}x{W}: equal to ncc_sweep_match={same}, "
+        f"launches={launches}, fraction at the true disparity {true_d:.4f}")
+    if not (same and true_d > 0.9):
+        raise AssertionError("the tensor-core sweep's entry point disagrees")
+    return dict(launches=launches, equal_k1=same, true_disparity_frac=true_d)
+
+
+def _ba_problem(dev, num_cams=16, num_pts=1 << 16, obs=8, seed=0):
+    """The ba_schur bench size on a 16-camera arc: points in [-1, 1]^3,
+    each seen by `obs` of the cameras, noiseless projections, base poses
+    perturbed by 0.01 (camera 0, the gauge anchor, exact), points by 0.05
+    (tests/test_ba.py:16-54 at scale).  Returns (problem, Rt_true, pts_true)."""
+    import torch
+    from reconstruction_tpu_torch.ba.bundle_adjust import BAProblem
+    from reconstruction_tpu_torch.core.camera import synthetic_rig
+    from reconstruction_tpu_torch.core.rectify import rodrigues_mat
+
+    rng = np.random.default_rng(seed)
+    cams = synthetic_rig(num_cams, span_deg=30.0)
+    K = np.stack([np.asarray(c.K, np.float64) for c in cams])
+    Rt_true = np.stack([np.asarray(c.Rt, np.float64) for c in cams])
+    pts = rng.uniform(-1, 1, size=(num_pts, 3))
+    cam = np.sort(np.argsort(rng.random((num_pts, num_cams)), axis=1)[:, :obs],
+                  axis=1).astype(np.int32)
+    xc = np.einsum("moij,mj->moi", Rt_true[cam][..., :3], pts) + Rt_true[cam][..., 3]
+    uvw = np.einsum("moij,moj->moi", K[cam], xc)
+    uv = uvw[..., :2] / uvw[..., 2:3]
+    Rt0 = Rt_true.copy()
+    for ci in range(1, num_cams):
+        dR = rodrigues_mat(rng.normal(scale=0.01, size=3))
+        Rt0[ci, :, :3] = dR @ Rt_true[ci, :, :3]
+        Rt0[ci, :, 3] = dR @ Rt_true[ci, :, 3] + rng.normal(scale=0.01, size=3)
+    pts0 = pts + rng.normal(scale=0.05, size=pts.shape)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    prob = BAProblem(K=t(K), Rt0=t(Rt0), points0=t(pts0), obs_uv=t(uv),
+                     obs_cam=t(cam, torch.int32),
+                     obs_ok=torch.ones((num_pts, obs), dtype=torch.bool, device=dev))
+    return prob, Rt_true, pts
+
+
+def _aligned_point_error(points: np.ndarray, Rt_true, pts_true) -> np.ndarray:
+    """Point errors after the similarity about camera 0's center that the
+    free gauge leaves open (tests/test_ba.py:107-113)."""
+    R0, t0 = Rt_true[0][:, :3], Rt_true[0][:, 3]
+    C0 = -R0.T @ t0
+    est = points.astype(np.float64) - C0
+    ref = pts_true - C0
+    s = float((est * ref).sum() / max(float((est * est).sum()), 1e-12))
+    return np.linalg.norm(C0 + s * est - pts_true, axis=1)
+
+
+def phase_ba(card: str) -> dict:
+    """bundle_adjust at the bench size (16 cams, 65,536 points, 8 obs per
+    point), twice, and the ms of one ba_step with K4 and with K4's plain
+    version in its place."""
+    import importlib
+    import torch
+    from reconstruction_tpu_torch.ops import ba_coupling as K4
+    tb = importlib.import_module("reconstruction_tpu_torch.ba.bundle_adjust")
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    prob, Rt_true, pts_true = _ba_problem(dev)
+    log(f"BA problem (16 cams, 65536 points, 8 obs) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = []
+    for i in range(2):
+        K4.ba_coupling.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses, points, costs = tb.bundle_adjust(prob, iterations=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(dict(launches=K4.ba_coupling.launches, wall_s=wall,
+                         costs=costs.tolist(), points=points))
+        log(f"bundle_adjust run {i}: {wall:.3f} s wall, K4 launches "
+            f"{K4.ba_coupling.launches}, costs {[f'{c:.6g}' for c in costs.tolist()]}")
+    launches = runs[0]["launches"]
+    costs = runs[0]["costs"]
+    err = _aligned_point_error(runs[0]["points"].cpu().numpy(), Rt_true, pts_true)
+    same = (runs[0]["costs"] == runs[1]["costs"]
+            and torch.equal(runs[0]["points"], runs[1]["points"]))
+    med = float(np.median(err))
+    log(f"BA: cost {costs[0]:.6g} -> {costs[-1]:.6g} "
+        f"(drop {costs[0] / max(costs[-1], 1e-30):.3g}x), median aligned "
+        f"point error {med:.3g}, two runs identical={same}")
+    if launches <= 0:
+        raise AssertionError("bundle_adjust launched no K4")
+    if not (np.isfinite(costs).all() and costs[-1] * 1e3 <= costs[0]
+            and med < 5e-3 and same):
+        raise AssertionError("bundle adjustment outside its criteria")
+
+    poses0 = torch.zeros((16, 6), device=dev)
+    step_ms = cuda_ms(lambda: tb.ba_step(prob, poses0, prob.points0, 16), 10)
+    tb.ba_coupling = K4.ba_coupling_plain
+    try:
+        step_plain_ms = cuda_ms(lambda: tb.ba_step(prob, poses0, prob.points0, 16), 5)
+    finally:
+        tb.ba_coupling = K4.ba_coupling
+    log(f"ba_step 16 cams / 65536 points / 8 obs: {step_ms:.3f} ms with K4, "
+        f"{step_plain_ms:.3f} ms with its plain version ({card})")
+    return dict(launches=launches, costs=costs, median_point_err=med,
+                deterministic=same, wall_s=[r["wall_s"] for r in runs],
+                step_ms=step_ms, step_plain_ms=step_plain_ms)
+
+
+def _front_end(image_size, device, max_features):
+    """Harris on gray, colour window descriptors, tracks over pairs (0,1),
+    (1,2), (0,2) and a structure-only bundle adjustment on three rendered
+    views.  Colour, because at 1280x1920 the scene's texture is smooth over
+    a 9x9 window: gray windows are near-linear ramps that match any window
+    of the same gradient direction at NCC > 0.95 (at 640x960, gray gave a
+    median |dz| of 0.142 and colour 0.021, on the CPU)."""
+    import torch
+    from reconstruction_tpu_torch.ba import (build_tracks, bundle_adjust,
+                                             describe, harris_corners)
+    from reconstruction_tpu_torch.utils.synthetic import make_stereo_scene
+
+    render_dev = device if device == "cuda" else "cpu"
+    cams, imgs, masks = make_stereo_scene(image_size=image_size, span_deg=10.0,
+                                          num_cameras=3, device=render_dev)
+    feats, descs = [], []
+    for img, msk in zip(imgs, masks):
+        gray = torch.as_tensor(img.mean(-1), device=device)
+        f = harris_corners(gray, torch.as_tensor(msk > 200, device=device),
+                           max_features=max_features)
+        feats.append(f)
+        descs.append(describe(torch.as_tensor(img, device=device), f, radius=4))
+    K = [np.asarray(c.K, np.float64) for c in cams]
+    Rt = [np.asarray(c.Rt, np.float64) for c in cams]
+    prob = build_tracks(feats, descs, K, Rt, pairs=[(0, 1), (1, 2), (0, 2)],
+                        threshold=0.7)
+    _, points, costs = bundle_adjust(prob, iterations=6, fix_cameras=True)
+    return prob, points.cpu().numpy(), costs.numpy()
+
+
+def _median_dz(points: np.ndarray) -> float:
+    from reconstruction_tpu_torch.utils.synthetic import surface_fn
+    sel = (np.abs(points[:, 0]) < 1.5) & (np.abs(points[:, 1]) < 1.5)
+    return float(np.median(np.abs(points[sel][:, 2]
+                                  - surface_fn(points[sel][:, 0], points[sel][:, 1]))))
+
+
+def phase_front_end(card: str) -> dict:
+    """The feature front end at the myself finest size (1280x1920), then at
+    160x120 on the card and on the CPU."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob, points, costs = _front_end((1280, 1920), "cuda", 1024)
+    wall = time.perf_counter() - t0
+    dz = _median_dz(points)
+    log(f"front end 1280x1920 (render included): {wall:.2f} s, "
+        f"{points.shape[0]} tracks, costs {costs[0]:.6g} -> {costs[-1]:.6g}, "
+        f"median |dz| {dz:.4f}")
+    if not (points.shape[0] > 20 and costs[-1] <= costs[0] and dz < 0.1):
+        raise AssertionError("full-size front end outside its criteria")
+
+    pg, xg, cg = _front_end((160, 120), "cuda", 256)
+    pc, xc, cc = _front_end((160, 120), "cpu", 256)
+    rel = float(np.abs(cg[-1] - cc[-1]) / max(abs(cc[-1]), 1e-30))
+    log(f"front end 160x120: tracks card {xg.shape[0]} CPU {xc.shape[0]}, "
+        f"final cost card {cg[-1]:.6g} CPU {cc[-1]:.6g} (rel {rel:.2e}), "
+        f"median |dz| card {_median_dz(xg):.4f}")
+    if not (xg.shape[0] == xc.shape[0] and rel < 1e-3):
+        raise AssertionError("front end differs between card and CPU")
+    return dict(wall_s=wall, tracks=int(points.shape[0]), median_dz=dz,
+                costs=[float(costs[0]), float(costs[-1])],
+                small_tracks=[int(xg.shape[0]), int(xc.shape[0])],
+                small_cost_rel=rel)
+
+
 def main() -> int:
     import torch
     # The package comes first: alone in a directory the script stops here.
@@ -316,6 +575,9 @@ def main() -> int:
     kern = phase_kernels(card)
     sl = phase_slice(card)
     small = phase_small_reference()
+    mxu = phase_mxu_path(card)
+    ba = phase_ba(card)
+    front = phase_front_end(card)
 
     src = "reconstruction_tpu_torch/csrc/"
     rows = [
@@ -325,13 +587,21 @@ def main() -> int:
              replaces="reconstruction_tpu/stereo/refine.py:39"),
         dict(name="refine_sweep", route="cuda", source=src + "refine.cu",
              replaces="reconstruction_tpu/ops/refine_pallas.py:69"),
+        dict(name="ba_coupling", route="cuda", source=src + "ba_coupling.cu",
+             replaces="reconstruction_tpu/ops/ba_coupling_pallas.py:39"),
+        dict(name="ncc_sweep_mxu", route="cuda", source=src + "ncc_sweep_mxu.cu",
+             replaces="reconstruction_tpu/ops/ncc_sweep_mxu.py:68"),
     ]
+    path_launches = dict(sl["launches"], ba_coupling=ba["launches"],
+                         ncc_sweep_mxu=mxu["launches"])
     for row in rows:
-        row["launches"] = sl["launches"][row["name"]]
-        row.update(kern[row["name"]])
+        row["launches"] = path_launches[row["name"]]
+        row.update({k: kern[row["name"]][k]
+                    for k in ("max_abs_err", "ms", "plain_ms")})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=rows, slice=sl, small=small,
+        json.dump(dict(card=card, kernels=rows, kernel_times=kern, slice=sl,
+                       small=small, mxu_path=mxu, ba=ba, front_end=front,
                        build_log=_build.build_log), f, indent=1)
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -21,3 +21,12 @@
 static inline cudaStream_t rtt_stream(void* s) {
   return reinterpret_cast<cudaStream_t>(s);
 }
+
+// The zero-mean NCC score of the sweeps (K1, K5), rounded as the reference
+// compiles (cross - n*muL*muR) * invL * invR: one fused multiply-add, then
+// two products.  nmu is n * muL, precomputed.
+__device__ __forceinline__ float rtt_ncc_score(float cross, float nmu,
+                                               float muR, float invL,
+                                               float invR) {
+  return __fmul_rn(__fmul_rn(__fmaf_rn(-nmu, muR, cross), invL), invR);
+}

@@ -9,7 +9,8 @@
 // sweep's, without the Pallas kernel's +-128 shift clip.
 //
 // K3 replaces the XLA band loop of
-// `reconstruction_tpu/stereo/refine.py::_banded_cost_volume`.
+// `reconstruction_tpu/stereo/refine.py::_banded_cost_volume`, including
+// its clamped slot writes.
 //
 // What bounds them on this card.  K1 does per output pixel and shift
 // C multiplies for the product, 2r adds for each box direction and the
@@ -135,8 +136,7 @@ ncc_sweep_kernel(const float* __restrict__ L, const float* __restrict__ R,
       if (t >= plo && t <= phi && t >= 0 && t < W &&
           validR[(size_t)y * W + t] != 0) {
         const size_t q = (size_t)y * W + t;
-        const float sc =
-            __fmul_rn(__fmul_rn(__fmaf_rn(-nmu, muR[q], cross), invl), invR[q]);
+        const float sc = rtt_ncc_score(cross, nmu, muR[q], invl, invR[q]);
         if (sc > best) {  // strict: the first maximum wins
           best = sc;
           bt = t;
@@ -169,9 +169,22 @@ cost_volume_kernel(const float* __restrict__ L, const float* __restrict__ R,
   const size_t pix = idx / S;
   const int x = (int)(pix % W), y = (int)(pix / W);
   const int b = y / band;
-  const int s = base_b[b] + j;
+  const int base = base_b[b], lo = lo_b[b], hi = hi_b[b];
+  // The reference writes shift s at slot clamp(s - base, 0, S - 1), in
+  // ascending s, so slot j holds the largest such s in [lo, hi].  Inside
+  // (0, S - 1) that is base + j; the edge slots also take shifts past them,
+  // which happens only when the band's range lies wholly beyond its slots.
+  int s;
+  bool has;
+  if (j == S - 1) {
+    s = hi;
+    has = hi >= lo && (j == 0 || hi - base >= S - 1);
+  } else {
+    s = min(hi, base + j);
+    has = s >= lo && (j == 0 || s == base + j);
+  }
   float xi = 0.5f;
-  if (s >= lo_b[b] && s <= hi_b[b]) {
+  if (has) {
     const int off[3] = {0, 1, -1};  // the reference's box order
     float bx[3];
     for (int k = 0; k < 3; ++k) {

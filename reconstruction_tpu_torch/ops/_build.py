@@ -45,6 +45,8 @@ _SIGNATURES = {
     "rtt_ncc_sweep": [_P] * 12 + [_I] * 4 + [_P],
     "rtt_cost_volume": [_P] * 10 + [_I] * 5 + [_P],
     "rtt_refine_sweep": [_P] * 6 + [_F] + [_I] * 3 + [_P],
+    "rtt_ba_coupling": [_P] * 3 + [_I] * 4 + [_P],
+    "rtt_ncc_sweep_mxu": [_P] * 13 + [_I] * 4 + [_P],
 }
 
 

@@ -79,15 +79,27 @@ def ncc_sweep_plain(L, R, nmuL, invL, muR, invR, validR, active, lo, hi,
 
     Returns (best score (H, W) f32, best target column (H, W) int32, -1
     where nothing scored above -1)."""
+    W = L.shape[1]
+    if not bool(active.any()):
+        s_min, s_max = 0, -1
+    else:
+        x = torch.arange(W, dtype=torch.int32, device=L.device)[None, :]
+        s_min = int(torch.where(active, lo - x, 1 << 20).min())
+        s_max = int(torch.where(active, hi - x, -(1 << 20)).max())
+    return sweep_shifts_plain(L, R, nmuL, invL, muR, invR, validR, active,
+                              lo, hi, radius, s_min, s_max)
+
+
+def sweep_shifts_plain(L, R, nmuL, invL, muR, invR, validR, active, lo, hi,
+                       radius: int, s_min: int, s_max: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain sweep over the shifts s_min..s_max (ascending, clipped to
+    +-(W-1)), each pixel gated by its own bounds."""
     H, W, C = L.shape
     dev = L.device
     x = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     best = torch.full((H, W), -1.0, dtype=torch.float32, device=dev)
     bt = torch.full((H, W), -1, dtype=torch.int32, device=dev)
-    if not bool(active.any()):
-        return best, bt
-    s_min = int(torch.where(active, lo - x, 1 << 20).min())
-    s_max = int(torch.where(active, hi - x, -(1 << 20)).max())
     s_min = min(max(s_min, -(W - 1)), W - 1)
     s_max = min(max(s_max, -(W - 1)), W - 1)
     Rp = F.pad(R, (0, 0, W, W))
@@ -146,7 +158,11 @@ def cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
     """Plain PyTorch banded 3x3 cost volume.
 
     cv[y, x, j] = (1 - NCC3x3(x, x + s)) / 2 for s = base_b[y // band] + j
-    inside [lo_b, hi_b] of that band, 0.5 elsewhere."""
+    inside [lo_b, hi_b] of that band, 0.5 elsewhere.  Shifts are written in
+    ascending order at slot clamp(s - base, 0, s_cap - 1), as the
+    reference's clamped `dynamic_update_slice`: a band whose range lies
+    wholly past its slots (|disparity| beyond the image width) leaves its
+    last shift in the edge slot."""
     H, W, C = L.shape
     dev = L.device
     cv = torch.full((H, W, s_cap), 0.5, dtype=torch.float32, device=dev)
@@ -170,7 +186,8 @@ def cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
         cross = box_sum(_channel_dot(L, Rp[:, cols]), 1)
         a = fma32(-nmuL, muRp[:, cols], cross) * invL
         xi = fma32(-(a * 0.5), invRp[:, cols], 0.5)
-        cv[sel[:, None], xs, (s - base[sel])[:, None]] = xi[sel]
+        slot = (s - base[sel]).clamp(0, s_cap - 1)
+        cv[sel[:, None], xs, slot[:, None]] = xi[sel]
     return cv
 
 

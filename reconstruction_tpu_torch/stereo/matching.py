@@ -61,6 +61,16 @@ def _centered(img: torch.Tensor) -> torch.Tensor:
     return (img if img.ndim == 3 else img[..., None]).contiguous()
 
 
+def sweep_moments(L: torch.Tensor, R: torch.Tensor, radius: int):
+    """The moment arguments of the sweep kernels for centered L, R:
+    (n * L's window means, L's inverse norms, R's window means, R's
+    inverse norms), contiguous (H, W) float32."""
+    momL = ncc_moments(L, radius)
+    momR = ncc_moments(R, radius)
+    return ((momL.n * momL.mean).contiguous(), momL.inv_norm.contiguous(),
+            momR.mean.contiguous(), momR.inv_norm.contiguous())
+
+
 def ncc_sweep_match(
     imgL: torch.Tensor,
     imgR: torch.Tensor,
@@ -78,11 +88,8 @@ def ncc_sweep_match(
     d = t - x (NOMATCH where unmatched) and the best score."""
     H, W = imgL.shape[:2]
     L, R = _centered(imgL), _centered(imgR)
-    momL = ncc_moments(L, radius)
-    momR = ncc_moments(R, radius)
     score, best_t = ncc_sweep(
-        L, R, (momL.n * momL.mean).contiguous(), momL.inv_norm.contiguous(),
-        momR.mean.contiguous(), momR.inv_norm.contiguous(),
+        L, R, *sweep_moments(L, R, radius),
         validR.bool().contiguous(), active.bool().contiguous(),
         bound_lo.to(torch.int32).contiguous(),
         bound_hi.to(torch.int32).contiguous(), radius)

@@ -1,8 +1,10 @@
-"""Zero-padded static shifts (counterpart of `reconstruction_tpu/stereo/ncc.py`,
-which also holds the BA-only `window_descriptors`; that one is ported with
-BA)."""
+"""Zero-mean NCC window machinery (counterpart of
+`reconstruction_tpu/stereo/ncc.py`): zero-padded static shifts, dense
+window descriptors and the per-scanline score matrix."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,3 +24,30 @@ def shifted(img: torch.Tensor, dy: int, dx: int, fill: float = 0.0) -> torch.Ten
     else:
         x = F.pad(img, trail + (px0, px1, py0, py1), value=fill)
     return x[py1:py1 + H, px1:px1 + W]
+
+
+def window_descriptors(img: torch.Tensor, radius: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense zero-mean L2-normalized (2r+1)^2 x C window descriptors.
+
+    img: (H, W) or (H, W, C) float32.  Returns (desc (H, W, K) with
+    K = (2r+1)^2 * C, taps ordered (dy, dx, c) as the reference; norm (H, W)
+    the pre-normalization L2 norms).  The mean is taken first, then the
+    norm of the centered window; a norm of 0 divides by 1.  Windows past
+    the image read zeros."""
+    if img.ndim == 2:
+        img = img[..., None]
+    cols = [shifted(img, dy, dx)
+            for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)]
+    desc = torch.cat(cols, dim=-1)
+    desc = desc - desc.mean(dim=-1, keepdim=True)
+    norm = torch.linalg.vector_norm(desc, dim=-1)
+    safe = torch.where(norm == 0, torch.ones_like(norm), norm)
+    return desc / safe[..., None], norm
+
+
+def row_score_matrix(descL: torch.Tensor, descR: torch.Tensor) -> torch.Tensor:
+    """(H, W, W) scores[y, x, x'] = NCC of left window (y, x) and right
+    window (y, x'), from (H, W, K) normalized descriptors."""
+    return torch.einsum("hwk,hvk->hwv", descL, descR)

@@ -1,8 +1,10 @@
 """State carried across from the JAX package.
 
-The slice has no learned weights; what one package's run hands the next
+The system has no learned weights; what one package's run hands the next
 stage is its state: margins, a pyramid level's disparities (the coarse
-state that guides the next level) and the pair's rectification.
+state the next level starts from), the pair's rectification, and for
+bundle adjustment a problem (`BAProblem`) or a view's detections
+(`Features`).
 `from_jax_state` turns those outputs (fields as numpy arrays, or
 anything `np.asarray` accepts) into this package's types, so that a test can feed
 the reference's coarse level into the port's next one.  It matches types
@@ -16,12 +18,18 @@ import dataclasses
 import numpy as np
 import torch
 
+from reconstruction_tpu_torch.ba.bundle_adjust import BAProblem
+from reconstruction_tpu_torch.ba.features import Features
 from reconstruction_tpu_torch.core.rectify import RectifyResult
 from reconstruction_tpu_torch.stereo.margins import Margins
 from reconstruction_tpu_torch.stereo.pipeline import LevelState
 
 _MARGIN_FIELDS = ("YL", "YR", "XL", "XR")
 _LEVEL_FIELDS = ("disp0", "disp1", "refine_drift0", "refine_drift1")
+_BA_TYPES = {  # field names -> (type, dtype per field)
+    BAProblem._fields: (BAProblem, (torch.float32,) * 4 + (torch.int32, torch.bool)),
+    Features._fields: (Features, (torch.float32, torch.float32, torch.bool)),
+}
 
 
 def _tensor(a, device, dtype=None):
@@ -32,13 +40,16 @@ def _tensor(a, device, dtype=None):
 
 
 def from_jax_state(obj, device="cpu"):
-    """Margins, LevelState or RectifyResult of the JAX package -> the
-    port's counterpart on ``device``."""
+    """Margins, LevelState, RectifyResult, BAProblem or Features of the JAX
+    package -> the port's counterpart on ``device``."""
     fields = getattr(obj, "_fields", None)
     if fields == _MARGIN_FIELDS:
         return Margins(*[_tensor(v, device, torch.int32) for v in obj])
     if fields == _LEVEL_FIELDS:
         return LevelState(*[_tensor(v, device, torch.float32) for v in obj])
+    if fields in _BA_TYPES:
+        cls, dtypes = _BA_TYPES[fields]
+        return cls(*[_tensor(v, device, dt) for v, dt in zip(obj, dtypes)])
     if dataclasses.is_dataclass(obj) and type(obj).__name__ == "RectifyResult":
         kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
         for k, v in kw.items():

@@ -25,6 +25,10 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.utils.convert\n"
         "import reconstruction_tpu_torch.ops.ncc_sweep\n"
         "import reconstruction_tpu_torch.ops.refine\n"
+        "import reconstruction_tpu_torch.ops.ba_coupling\n"
+        "import reconstruction_tpu_torch.ops.ncc_sweep_mxu\n"
+        "import reconstruction_tpu_torch.ba\n"
+        "import reconstruction_tpu_torch.stereo.ncc\n"
         "import reconstruction_tpu_torch.ops._build\n"
         "import reconstruction_tpu_torch.config\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

@@ -89,3 +89,75 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K2.refine_sweep(d.double(), torch.zeros((8, 8, 4), device=dev),
                         torch.zeros((8, 8), dtype=torch.int32, device=dev),
                         d, torch.ones((8, 8), dtype=torch.bool, device=dev), 0.03)
+
+
+def test_k3_cost_volume_clamped_edge_slots_equal_plain(dev):
+    """Bands whose range lies beyond +-W write their last shift into the
+    edge slot (the reference's clamped dynamic_update_slice)."""
+    from reconstruction_tpu_torch.ops import ncc_sweep as K
+    from reconstruction_tpu_torch.stereo.refine import _band_ranges
+    L, R, valid, moments = _scene(dev)
+    H, W = valid.shape
+    d = torch.where(valid, torch.full((H, W), 12.0, device=dev),
+                    torch.tensor(float(NOMATCH), device=dev))
+    d[:48] = torch.where(valid[:48], W + 100.0, float(NOMATCH))
+    d[48:96] = torch.where(valid[48:96], -(W + 100.0), float(NOMATCH))
+    m, mR = moments(L, 1), moments(R, 1)
+    for s_cap in (64, 1):
+        base_b, lo_b, hi_b = _band_ranges(d, s_cap, 48, 16)
+        args = (L, R, (m.n * m.mean).contiguous(), m.inv_norm, mR.mean,
+                mR.inv_norm, base_b, lo_b, hi_b, s_cap, 48)
+        cvk = K.cost_volume(*args)
+        assert torch.equal(cvk, K.cost_volume_plain(*args))
+        assert bool((cvk[:48, :, 0] != 0.5).any())
+        assert bool((cvk[48:96, :, s_cap - 1] != 0.5).any())
+
+
+@pytest.mark.parametrize("O,M", [(8, 1000), (3, 257), (20, 64)])
+def test_k4_ba_coupling_equals_plain(dev, O, M):
+    from reconstruction_tpu_torch.ops import ba_coupling as K4
+    g = torch.Generator(device=dev).manual_seed(O)
+    E, C = 18, 16
+    He = torch.randn((E, O, M), generator=g, device=dev)
+    cam = torch.randint(-1, C, (O, M), generator=g, device=dev,
+                        dtype=torch.int32)
+    n0 = K4.ba_coupling.launches
+    Wk = K4.ba_coupling(He, cam, C)
+    assert K4.ba_coupling.launches == n0 + 1
+    assert torch.equal(Wk, K4.ba_coupling_plain(He, cam, C))
+    with pytest.raises(TypeError):
+        K4.ba_coupling(He.double(), cam, C)
+
+
+@pytest.mark.parametrize("C,radius,lo0,wid,ps", [(3, 2, -20, 40, 128),
+                                                 (1, 2, -5, 10, 128),
+                                                 (3, 1, -150, 300, 256),
+                                                 (1, 2, -40, 80, 16)])
+def test_k5_mxu_sweep_equals_plain_and_k1(dev, C, radius, lo0, wid, ps):
+    from reconstruction_tpu_torch.ops import ncc_sweep as K1
+    from reconstruction_tpu_torch.ops import ncc_sweep_mxu as K5
+    L, R, valid, moments = _scene(dev)
+    L, R = L[..., :C].contiguous(), R[..., :C].contiguous()
+    H, W = valid.shape
+    g = torch.Generator(device=dev).manual_seed(C * 100 + wid)
+    x = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    lo = torch.clamp(x + torch.randint(lo0, 1, (H, W), generator=g, device=dev,
+                                       dtype=torch.int32), 0, W - 1)
+    hi = torch.clamp(lo + torch.randint(0, wid + 1, (H, W), generator=g,
+                                        device=dev, dtype=torch.int32), 0, W - 1)
+    active = valid & (torch.rand((H, W), generator=g, device=dev) > 0.3)
+    mL, mR = moments(L, radius), moments(R, radius)
+    args = (L, R, (mL.n * mL.mean).contiguous(), mL.inv_norm, mR.mean,
+            mR.inv_norm, valid, active, lo.contiguous(), hi.contiguous(), radius)
+    n0 = K5.ncc_sweep_mxu.launches
+    sk, tk = K5.ncc_sweep_mxu(*args, pad_shift=ps)
+    assert K5.ncc_sweep_mxu.launches == n0 + 1
+    sp, tp = K5.ncc_sweep_mxu_plain(*args, pad_shift=ps)
+    assert torch.equal(sk, sp) and torch.equal(tk, tp)
+    s_lo = int(torch.where(active, lo - x, 1 << 20).min())
+    s_hi = int(torch.where(active, hi - x, -(1 << 20)).max())
+    if -ps <= s_lo <= ps - 1 and s_hi <= ps:   # nothing clipped: K1's result
+        s1, t1 = K1.ncc_sweep(*args)
+        assert torch.equal(sk, s1) and torch.equal(tk, t1)
+    with pytest.raises(ValueError):
+        K5.ncc_sweep_mxu(L + 0.5, *args[1:], pad_shift=ps)

@@ -45,6 +45,25 @@ def test_banded_cost_volume_exact(scene, s_cap, band, drift):
     assert_equal(cv_r, cv_g, "cv")
 
 
+@pytest.mark.parametrize("s_cap,band", [(32, 8), (1, 16)])
+def test_banded_cost_volume_clamps_slots_beyond_the_image(scene, s_cap, band):
+    """Bands whose disparities lie beyond +-W: the reference's clamped
+    dynamic_update_slice leaves the band's last shift in its edge slot
+    (slot 0 above the image width, slot s_cap - 1 below it); bit-equal."""
+    imgL, imgR, disp, _ = scene
+    W = disp.shape[1]
+    d = disp.copy()
+    ok = d != NOMATCH
+    d[:16] = np.where(ok[:16], W + 100.0, NOMATCH)
+    d[16:32] = np.where(ok[16:32], -(W + 100.0), NOMATCH)
+    cv_r, base_r = jr._banded_cost_volume(J(imgL), J(imgR), J(d), s_cap, band)
+    cv_g, base_g = tr._banded_cost_volume(T(imgL), T(imgR), T(d), s_cap, band)
+    assert_equal(base_r, base_g, "base")
+    assert_equal(cv_r, cv_g, "cv")
+    assert (np.asarray(cv_r)[:16, :, 0] != 0.5).any()          # edge writes
+    assert (np.asarray(cv_r)[16:32, :, s_cap - 1] != 0.5).any()
+
+
 def test_resolve_recenter_matches():
     for it in (12, 24, 30, 60, 90, 120):
         for rc in (-1, 0, 12, 30):
