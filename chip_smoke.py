@@ -10,22 +10,32 @@ against its own criteria.
 
 Phases (any failure raises; the exit code is then non-zero):
   1. versions, card name and power limit; refuses to run without CUDA
-  2. nvcc build of reconstruction_tpu_torch/csrc/*.cu (into
-     reconstruction_tpu_torch/_build/)
-  3. K1 sweep, K3 cost volume, K2 refine, K5 tensor-core sweep vs their
-     plain versions at H=1920, W=1280, C=3 (K5 also vs K1), K4 coupling
-     vs its plain version at E=18, O=8, M=65,536, C=16; timed with CUDA
-     events
+  2. nvcc build of reconstruction_tpu_torch/csrc/*.cu (one process per
+     source, into reconstruction_tpu_torch/_build/)
+  3. each kernel against its plain version on the same inputs, bit-equal:
+     K1 sweep (64-shift and guided cases), K3 cost volume (slot-major,
+     64-row bands and an edge-clamp case), K2 fused sweeps against as many
+     plain single sweeps (30 across a window re-extraction, and 13), K5
+     tensor-core sweep (also against K1), all at H=1920, W=1280, C=3; K4
+     coupling at E=18, O=8, M=65,536, C=16.  Each kernel's device time
+     (torch.profiler) beside its bound (bytes or float32 operations of
+     this run's inputs at the H100's peak rates; K2's taps counted once a
+     launch) and its plain version's time; K3's and K5's whole wrapper
+     call, which waits for a check; K3 beside a plain fill of a volume of
+     its size; K4 beside scatter_add_ (the library yardstick)
   4. match_pair on a rendered 1280x1920 two-view scene, preset "myself",
-     with the kernels' launch counts, per-level times and cloud metrics,
-     and the same path on a small scene against the plain CPU path
+     twice, with the kernels' launch counts, per-level times, cloud
+     metrics and determinism, then torch.profiler over a third, warm run
+     (device time and launches by kernel); the same path on a small scene
+     against the plain CPU path
   5. ncc_sweep_match_mxu at the 64-shift 1920x1280 cell, equal to
-     ncc_sweep_match (K1) on the same inputs
+     ncc_sweep_match (K1) on the same inputs, profiled
   6. bundle_adjust at 16 cameras, 65,536 points, 8 observations per
-     point: cost drop, aligned point error, determinism, ms per ba_step
+     point: cost drop, aligned point error, determinism, a profiled run,
+     ms per ba_step
   7. Harris, colour descriptors, tracks and structure-only BA on three
      rendered 1280x1920 views (surface error), and at 160x120 card vs CPU
-  8. the last line: {"ok": true, "device": {...}}
+  8. the kernels line, the card line, and last {"ok": true, "device": {...}}
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -67,6 +77,117 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Published peaks of one H100 SXM: device memory and float32 outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes that must move over the memory rate and the float32 operations
+    over the peak rate, and which of the two sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_ops=ops)
+
+
+def sweep_bound(L, active, lo, hi, r) -> dict:
+    """K1's and K5's function: inputs L, R (H, W, C) f32, six (H, W) f32 or
+    int32 maps and two bool maps read once, score and column written once;
+    per active pixel and shift in its bounds, C multiplies and C-1 adds of
+    the product, 4r adds of the separable box and 5 for the score and the
+    compare."""
+    import torch
+    H, W, C = L.shape
+    nbytes = H * W * (2 * C * 4 + 6 * 4 + 2 + 2 * 4)
+    pairs = float(torch.where(active, (hi - lo + 1).clamp_min(0), 0).double().sum())
+    return bound(nbytes, pairs * (2 * C - 1 + 4 * r + 5))
+
+
+def volume_bound(cargs) -> dict:
+    """K3: L, R (H, W, C) f32 and four (H, W) f32 moments read once, the
+    (H, s_cap, W) f32 volume written once; per filled (pixel, slot), C
+    multiplies and C-1 adds of the product, 4 adds of the 3x3 box and 6
+    for the score."""
+    import torch
+    L, base_b, lo_b, hi_b, s_cap, band = (cargs[0],) + tuple(cargs[6:])
+    H, W, C = L.shape
+    rows = torch.arange(H, device=L.device) // band
+    lo, hi, base = lo_b[rows].long(), hi_b[rows].long(), base_b[rows].long()
+    # Filled slots per row: the shifts of [lo, hi] that land in [0, s_cap),
+    # at least one when the range is not empty (the clamped edge slot).
+    a = torch.maximum(lo - base, torch.zeros_like(lo))
+    b = torch.minimum(hi - base, torch.full_like(hi, s_cap - 1))
+    filled = torch.where(hi >= lo, (b - a + 1).clamp_min(1), 0)
+    nbytes = H * W * (2 * C + 4) * 4 + H * W * s_cap * 4
+    return bound(nbytes, float(filled.sum()) * W * (2 * C - 1 + 4 + 6))
+
+
+def refine_bound(d, cv, j0, jref, inner, ws: float, sweeps: int) -> dict:
+    """K2 over ``sweeps`` sweeps in one launch: d, j0, jref (4 bytes) and
+    inner (1) read once and d written once; every 4-byte tap of the volume
+    that one of the sweeps reads, counted once however many read it (the
+    taps of the plain sweeps, from their anchors); ~70 float32 operations
+    (the parabola, two exps, the blend) per pixel that can move (valid and
+    inner) and sweep."""
+    import torch
+    from reconstruction_tpu_torch.config import NOMATCH
+    from reconstruction_tpu_torch.ops import refine as K2
+    H, W = d.shape
+    S = cv.shape[1]
+    movers = (d != NOMATCH) & inner
+    rows = torch.arange(H, device=d.device)[:, None].expand(H, W)
+    cols = torch.arange(W, device=d.device)[None, :].expand(H, W)
+    touched = torch.zeros((H, S, W), dtype=torch.bool, device=d.device)
+    reads = 0.0
+    for _ in range(sweeps):
+        j = (K2.CENTER + (torch.trunc(d - 1.5) - jref)).to(torch.int32)
+        for off in (-1, 0, 1):
+            jj = j + off
+            k = j0 + jj
+            ok = movers & (jj >= 0) & (jj < K2.MINI) & (k >= 0) & (k < S)
+            touched[rows[ok], k[ok].long(), cols[ok]] = True
+            reads += float(ok.sum())
+        d = K2.refine_sweep_plain(d, cv, j0, jref, inner, ws)
+    taps = float(touched.sum())
+    del touched
+    return dict(bound(H * W * 17 + taps * 4, sweeps * float(movers.sum()) * 70),
+                taps_distinct=taps, tap_reads=reads)
+
+
+def report(name: str, res: dict, card: str) -> None:
+    share = res["bound_ms"] / res["ms"]
+    lib = res.get("library_ms")
+    call = f", wrapper call {res['call_ms']:.4f} ms" if "call_ms" in res else ""
+    log(f"{name}: kernel {res['ms']:.4f} ms{call}, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}), {100 * share:.1f}% of the bound, plain "
+        f"{res['plain_ms']:.4f} ms, library "
+        f"{'none' if lib is None else f'{lib:.4f} ms'} ({card})")
+
+
+def kernel_ms(fn, name: str, reps: int) -> float:
+    """Milliseconds of device time per call of ``fn`` spent in kernels whose
+    name contains ``name``, from torch.profiler over ``reps`` calls after a
+    warm-up: the kernel alone, without its wrapper's host work (K3's and
+    K5's wrappers wait for an integer-grid check) and the host's gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name)
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no kernel named like {name}")
+    return us / 1e3 / reps
 
 
 def phase_kernels(card: str) -> dict:
@@ -124,73 +245,114 @@ def phase_kernels(card: str) -> dict:
             raise AssertionError(f"K1 case {i} differs from its plain version")
         errs.append(err)
     args = margs + (valid, valid, lo, hi, r)
-    ms = cuda_ms(lambda: K13.ncc_sweep(*args), 10)
+    ms = kernel_ms(lambda: K13.ncc_sweep(*args), "ncc_sweep_kernel", 10)
     plain_ms = cuda_ms(lambda: K13.ncc_sweep_plain(*args), 2)
-    log(f"K1 ncc_sweep 64 shifts {H}x{W}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms ({card})")
-    results["ncc_sweep"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    results["ncc_sweep"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                library_ms=None, **sweep_bound(L, valid, lo, hi, r))
+    report(f"K1 ncc_sweep 64 shifts {H}x{W}", results["ncc_sweep"], card)
 
-    # K3: the banded cost volume, s_cap 128, band 64, around d ~ 40.
+    # K3: the banded cost volume, s_cap 128, band 64, around d ~ 40; and
+    # the clamped edge slots of bands whose range lies beyond +-W.
     d = torch.where(valid, 40.0 + torch.randint(-3, 4, (H, W), generator=gen,
                                                 device=dev).float(),
                     torch.tensor(float(NOMATCH), device=dev))
+    d_far = d.clone()
+    d_far[:128] = torch.where(valid[:128], W + 100.0, float(NOMATCH))
+    d_far[128:256] = torch.where(valid[128:256], -(W + 100.0), float(NOMATCH))
     s_cap, band = 128, 64
-    base_b, lo_b, hi_b = _band_ranges(d, s_cap, band, 16)
     m1 = ncc_moments(L, 1)
     m1R = ncc_moments(R, 1)
+    for case, dd in (("64-row bands", d), ("edge clamp", d_far)):
+        cargs = (L, R, (m1.n * m1.mean).contiguous(), m1.inv_norm, m1R.mean,
+                 m1R.inv_norm, *_band_ranges(dd, s_cap, band, 16), s_cap, band)
+        cvk = K13.cost_volume(*cargs)
+        cvp = K13.cost_volume_plain(*cargs)
+        torch.cuda.synchronize()
+        equal = torch.equal(cvk, cvp)
+        err = float((cvk - cvp).abs().max())
+        edges = bool((cvk[:128, 0] != 0.5).any() and
+                     (cvk[128:256, s_cap - 1] != 0.5).any())
+        log(f"K3 cost_volume ({case}): bit-equal={equal} max_abs_err={err} "
+            f"edge slots written={edges}")
+        if not equal or (dd is d_far and not edges):
+            raise AssertionError(f"K3 ({case}) differs from its plain version")
+        del cvp
     cargs = (L, R, (m1.n * m1.mean).contiguous(), m1.inv_norm, m1R.mean,
-             m1R.inv_norm, base_b, lo_b, hi_b, s_cap, band)
+             m1R.inv_norm, *_band_ranges(d, s_cap, band, 16), s_cap, band)
+    base_b = cargs[6]
     cvk = K13.cost_volume(*cargs)
-    cvp = K13.cost_volume_plain(*cargs)
-    torch.cuda.synchronize()
-    equal = torch.equal(cvk, cvp)
-    err = float((cvk - cvp).abs().max())
-    log(f"K3 cost_volume: bit-equal={equal} max_abs_err={err}")
-    if not equal:
-        raise AssertionError("K3 differs from its plain version")
-    del cvp
-    ms = cuda_ms(lambda: K13.cost_volume(*cargs), 5)
+    # Yardsticks of what bounds K3: a plain fill of a volume of the same
+    # size (the card's write rate), and K3 on bands with nothing to fill
+    # (its own store pattern without the NCC work).
+    fill = torch.empty_like(cvk)
+    fill_ms = cuda_ms(lambda: fill.fill_(0.5), 10)
+    del fill
+    nm = torch.full_like(d, float(NOMATCH))
+    eargs = cargs[:6] + _band_ranges(nm, s_cap, band, 16) + cargs[9:]
+    empty_ms = kernel_ms(lambda: K13.cost_volume(*eargs), "cost_volume_kernel", 10)
+    log(f"K3 yardsticks: fill_ of the volume {fill_ms:.4f} ms, K3 with no "
+        f"filled slot {empty_ms:.4f} ms ({card})")
+    ms = kernel_ms(lambda: K13.cost_volume(*cargs), "cost_volume_kernel", 10)
+    call_ms = cuda_ms(lambda: K13.cost_volume(*cargs), 10)
     plain_ms = cuda_ms(lambda: K13.cost_volume_plain(*cargs), 1)
-    log(f"K3 cost_volume s_cap {s_cap} band {band} {H}x{W}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms ({card})")
-    results["cost_volume"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["cost_volume"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  library_ms=None, call_ms=call_ms, fill_ms=fill_ms,
+                                  empty_ms=empty_ms, **volume_bound(cargs))
+    report(f"K3 cost_volume s_cap {s_cap} band {band} {H}x{W}",
+           results["cost_volume"], card)
 
-    # K2: 30 sweeps from the volume above, one re-extraction (auto).
+    # K2: the fused sweeps against as many plain single sweeps, on the
+    # volume above: 30 sweeps with the auto re-extraction (18 + 12), and 13
+    # sweeps (13 % T != 0).
     m = find_margin(valid, r)
     inner = inner_box(m, H, W, inset=1).contiguous()
     rowbase = base_b.repeat_interleave(band)[:H].contiguous()
-    rc = resolve_recenter(30, -1)
 
-    def sweeps(step):
-        dd = d.contiguous()
-        done = 0
-        while done < 30:
+    def sweeps(fused: bool, total: int, every: int):
+        dd, done = d.contiguous(), 0
+        while done < total:
             j0, jref = K2.window_anchors(dd, rowbase)
-            n = min(rc, 30 - done)
-            for _ in range(n):
-                dd = step(dd, cvk, j0, jref, inner, 0.03)
+            n = min(every, total - done)
+            if fused:
+                dd = K2.refine_sweeps_fused(dd, cvk, j0, jref, inner, 0.03, n)
+            else:
+                for _ in range(n):
+                    dd = K2.refine_sweep_plain(dd, cvk, j0, jref, inner, 0.03)
             done += n
         return dd
 
-    dk = sweeps(K2.refine_sweep)
-    dp = sweeps(K2.refine_sweep_plain)
-    torch.cuda.synchronize()
-    equal = torch.equal(dk, dp)
-    err = float((dk - dp).abs().max())
-    close = float(torch.isclose(dk, dp, atol=1e-4, rtol=0).float().mean())
-    same_nm = torch.equal(dk == NOMATCH, dp == NOMATCH)
-    log(f"K2 refine 30 sweeps: bit-equal={equal} max_abs_err={err} "
-        f"within1e-4={close} same_NOMATCH={same_nm} "
-        f"moved={float(((dk != d) & valid).float().mean()):.4f}")
-    if not (equal or (close >= 0.999 and same_nm)):
-        raise AssertionError("K2 outside the refine tolerance of its plain version")
+    T = K2.SWEEPS_PER_LAUNCH
+    errs = []
+    for total, every in ((30, resolve_recenter(30, -1)), (13, 0)):
+        every = every or total
+        n0 = K2.refine_sweeps_fused.launches
+        dk = sweeps(True, total, every)
+        launched = K2.refine_sweeps_fused.launches - n0
+        dp = sweeps(False, total, every)
+        torch.cuda.synchronize()
+        equal = torch.equal(dk, dp)
+        errs.append(float((dk - dp).abs().max()))
+        log(f"K2 refine_sweeps_fused {total} sweeps (window every {every}, "
+            f"T={T}, {launched} launches): bit-equal={equal} "
+            f"max_abs_err={errs[-1]} "
+            f"moved={float(((dk != d) & valid).float().mean()):.4f}")
+        if not equal:
+            raise AssertionError("K2 differs from its plain sweeps")
     j0, jref = K2.window_anchors(d, rowbase)
-    ms = cuda_ms(lambda: K2.refine_sweep(d, cvk, j0, jref, inner, 0.03), 30)
-    plain_ms = cuda_ms(lambda: K2.refine_sweep_plain(d, cvk, j0, jref, inner,
-                                                     0.03), 5)
-    log(f"K2 refine one sweep {H}x{W}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms ({card})")
-    results["refine_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    ms = kernel_ms(lambda: K2.refine_sweeps_fused(d, cvk, j0, jref, inner,
+                                                  0.03, T), "refine_sweeps_kernel", 20)
+    plain_ms = cuda_ms(lambda: K2.refine_sweeps_fused_plain(
+        d, cvk, j0, jref, inner, 0.03, T), 2)
+    results["refine_sweeps_fused"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+        sweeps=T, ms_per_sweep=ms / T,
+        **refine_bound(d, cvk, j0, jref, inner, 0.03, T))
+    kb = results["refine_sweeps_fused"]
+    log(f"K2 taps of one launch: {kb['taps_distinct']:.0f} distinct of "
+        f"{kb['tap_reads']:.0f} reads over {T} sweeps; bound "
+        f"{kb['bound_bytes'] / 1e6:.1f} MB, {kb['bound_ms'] / T:.4f} ms a sweep")
+    report(f"K2 refine_sweeps_fused, one launch of {T} sweeps {H}x{W} "
+           f"({ms / T:.4f} ms a sweep)", results["refine_sweeps_fused"], card)
 
     # K5: the tensor-core sweep on K1's 64-shift case, against its plain
     # version and against K1 (one 128-shift chunk; the bounds gate the rest).
@@ -206,13 +368,15 @@ def phase_kernels(card: str) -> dict:
         f"max_abs_err={err}")
     if not (equal and equal_k1):
         raise AssertionError("K5 differs from its plain version or from K1")
-    ms = cuda_ms(lambda: K5.ncc_sweep_mxu(*args), 10)
-    ms_k1 = cuda_ms(lambda: K13.ncc_sweep(*args), 10)
+    ms = kernel_ms(lambda: K5.ncc_sweep_mxu(*args), "ncc_sweep_mxu_kernel", 10)
+    call_ms = cuda_ms(lambda: K5.ncc_sweep_mxu(*args), 10)
+    ms_k1 = kernel_ms(lambda: K13.ncc_sweep(*args), "ncc_sweep_kernel", 10)
     plain_ms = cuda_ms(lambda: K5.ncc_sweep_mxu_plain(*args), 2)
-    log(f"K5 ncc_sweep_mxu 64 shifts {H}x{W}: kernel {ms:.3f} ms, K1 "
-        f"{ms_k1:.3f} ms, plain {plain_ms:.3f} ms ({card})")
     results["ncc_sweep_mxu"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    k1_ms=ms_k1)
+                                    k1_ms=ms_k1, call_ms=call_ms, library_ms=None,
+                                    **sweep_bound(L, valid, lo, hi, r))
+    report(f"K5 ncc_sweep_mxu 64 shifts {H}x{W} (K1 {ms_k1:.4f} ms)",
+           results["ncc_sweep_mxu"], card)
 
     # K4: the BA coupling contraction at the bench shape, some cams -1.
     E, O, M, C = 18, 8, 1 << 16, 16
@@ -228,13 +392,65 @@ def phase_kernels(card: str) -> dict:
     log(f"K4 ba_coupling: bit-equal={equal} max_abs_err={err}")
     if not equal:
         raise AssertionError("K4 differs from its plain version")
-    ms = cuda_ms(lambda: K4.ba_coupling(He, cam, C), 20)
+    ms = kernel_ms(lambda: K4.ba_coupling(He, cam, C), "ba_coupling_kernel", 20)
     plain_ms = cuda_ms(lambda: K4.ba_coupling_plain(He, cam, C), 5)
-    gbs = (He.numel() * 4 + cam.numel() * 4 + Wk.numel() * 4) / (ms * 1e6)
-    log(f"K4 ba_coupling E={E} O={O} M={M} C={C}: kernel {ms:.4f} ms "
-        f"({gbs:.0f} GB/s), plain {plain_ms:.4f} ms ({card})")
-    results["ba_coupling"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # The library yardstick: one scatter_add_ into (E, C+1, M), padding
+    # cameras sent to slot C, the index prepared outside the timed region.
+    idx = torch.where(cam < 0, C, cam).long()[None].expand(E, O, M)
+    acc = torch.zeros((E, C + 1, M), device=dev)
+    library_ms = cuda_ms(lambda: acc.scatter_add_(1, idx, He), 20)
+    del acc, idx
+    nbytes = (He.numel() + cam.numel() + Wk.numel()) * 4
+    results["ba_coupling"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms,
+                                  **bound(nbytes, He.numel()))
+    report(f"K4 ba_coupling E={E} O={O} M={M} C={C}", results["ba_coupling"],
+           card)
     return results
+
+
+# Substrings of the port's kernel names, as the profiler reports them.
+PORT_KERNELS = {"ncc_sweep": "ncc_sweep_kernel", "cost_volume": "cost_volume_kernel",
+                "refine": "refine_sweep", "ba_coupling": "ba_coupling_kernel",
+                "ncc_sweep_mxu": "ncc_sweep_mxu_kernel"}
+
+
+def profile_run(run, label: str, card: str, top: int = 12) -> dict:
+    """torch.profiler (CPU and CUDA activity) over one warm ``run``: device
+    time and launches summed by kernel name, the port's kernels apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        raise AssertionError(f"{label}: the profiler recorded no device time")
+    busy = sum(ms for ms, _ in by_name.values())
+    port = {}
+    for key, sub in PORT_KERNELS.items():
+        hits = [(ms, n) for name, (ms, n) in by_name.items() if sub in name]
+        if hits:
+            port[key] = dict(ms=sum(h[0] for h in hits),
+                             launches=sum(h[1] for h in hits))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:30]
+    log(f"profile of {label} ({card}): wall {wall_ms:.1f} ms under the profiler, "
+        f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{sum(n for _, n in by_name.values())} device events")
+    for key, v in port.items():
+        log(f"  port kernel {key}: {v['ms']:.3f} ms in {v['launches']} launches")
+    for name, (ms, n) in ranked[:top]:
+        log(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, port_kernels=port,
+                top=[dict(name=k, ms=v[0], launches=v[1]) for k, v in ranked])
 
 
 def cloud_metrics(cloud) -> dict:
@@ -265,7 +481,7 @@ def phase_slice(card: str) -> dict:
             cams[1].K, cams[1].Rt)
 
     wrappers = (("ncc_sweep", K13.ncc_sweep), ("cost_volume", K13.cost_volume),
-                ("refine_sweep", K2.refine_sweep))
+                ("refine_sweeps_fused", K2.refine_sweeps_fused))
     for _, w in wrappers:
         w.launches = 0
     torch.cuda.synchronize()
@@ -305,9 +521,12 @@ def phase_slice(card: str) -> dict:
         f"{[round(v, 3) for v in res2.level_ms]}, deterministic={same} ({card})")
     if not same:
         raise AssertionError("two runs of match_pair on the card differ")
+    prof = profile_run(lambda: match_pair(*args, device="cuda"),
+                       "one warm match_pair", card)
     return dict(launches=launches, wall_s=[wall, wall2],
                 level_ms=[res.level_ms, res2.level_ms], matched_frac=frac,
-                cloud=metrics, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+                cloud=metrics, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                profile=prof)
 
 
 def phase_small_reference() -> dict:
@@ -370,6 +589,9 @@ def phase_mxu_path(card: str) -> dict:
     launches = K5.ncc_sweep_mxu.launches
     if launches <= 0:
         raise AssertionError("ncc_sweep_match_mxu launched no K5")
+    prof = profile_run(lambda: ncc_sweep_match_mxu(imgL, imgR, valid, valid,
+                                                   lo, hi, 2),
+                       "one ncc_sweep_match_mxu", card, top=0)
     ref = ncc_sweep_match(imgL, imgR, valid, valid, lo, hi, 2)
     same = (torch.equal(res.disparity, ref.disparity)
             and torch.equal(res.score, ref.score))
@@ -378,7 +600,8 @@ def phase_mxu_path(card: str) -> dict:
         f"launches={launches}, fraction at the true disparity {true_d:.4f}")
     if not (same and true_d > 0.9):
         raise AssertionError("the tensor-core sweep's entry point disagrees")
-    return dict(launches=launches, equal_k1=same, true_disparity_frac=true_d)
+    return dict(launches=launches, equal_k1=same, true_disparity_frac=true_d,
+                profile=prof)
 
 
 def _ba_problem(dev, num_cams=16, num_pts=1 << 16, obs=8, seed=0):
@@ -469,6 +692,8 @@ def phase_ba(card: str) -> dict:
             and med < 5e-3 and same):
         raise AssertionError("bundle adjustment outside its criteria")
 
+    prof = profile_run(lambda: tb.bundle_adjust(prob, iterations=10),
+                       "one bundle_adjust (10 iterations)", card, top=5)
     poses0 = torch.zeros((16, 6), device=dev)
     step_ms = cuda_ms(lambda: tb.ba_step(prob, poses0, prob.points0, 16), 10)
     tb.ba_coupling = K4.ba_coupling_plain
@@ -480,7 +705,7 @@ def phase_ba(card: str) -> dict:
         f"{step_plain_ms:.3f} ms with its plain version ({card})")
     return dict(launches=launches, costs=costs, median_point_err=med,
                 deterministic=same, wall_s=[r["wall_s"] for r in runs],
-                step_ms=step_ms, step_plain_ms=step_plain_ms)
+                step_ms=step_ms, step_plain_ms=step_plain_ms, profile=prof)
 
 
 def _front_end(image_size, device, max_features):
@@ -585,7 +810,7 @@ def main() -> int:
              replaces="reconstruction_tpu/ops/ncc_sweep_pallas.py:48"),
         dict(name="cost_volume", route="cuda", source=src + "ncc_sweep.cu",
              replaces="reconstruction_tpu/stereo/refine.py:39"),
-        dict(name="refine_sweep", route="cuda", source=src + "refine.cu",
+        dict(name="refine_sweeps_fused", route="cuda", source=src + "refine.cu",
              replaces="reconstruction_tpu/ops/refine_pallas.py:69"),
         dict(name="ba_coupling", route="cuda", source=src + "ba_coupling.cu",
              replaces="reconstruction_tpu/ops/ba_coupling_pallas.py:39"),
@@ -597,7 +822,11 @@ def main() -> int:
     for row in rows:
         row["launches"] = path_launches[row["name"]]
         row.update({k: kern[row["name"]][k]
-                    for k in ("max_abs_err", "ms", "plain_ms")})
+                    for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")})
+        # The wrapper's whole call where it reads a check back from the card.
+        if "call_ms" in kern[row["name"]]:
+            row["call_ms"] = kern[row["name"]]["call_ms"]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=rows, kernel_times=kern, slice=sl,

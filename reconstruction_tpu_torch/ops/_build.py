@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels and loads them with ctypes.
 
-Route: nvcc compiles every `csrc/*.cu` into one shared library with a
-plain C interface (no PyTorch headers, so a cold build takes seconds),
+Route: nvcc compiles every `csrc/*.cu` to an object, one process per
+source, all started together, and links them into one shared library with
+a plain C interface (no PyTorch headers, so a cold build takes seconds),
 keyed by a hash of the sources and flags, in `reconstruction_tpu_torch/_build/`.
 The build runs at the first CUDA use in a process; a later process with
 the same sources loads the library it finds.
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17",
     "--fmad=false",          # no silent mul+add contraction (see csrc/common.cuh)
     "-Xptxas=-v",            # registers, shared memory and spills per kernel
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -43,8 +44,8 @@ _F = ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream are void*).
 _SIGNATURES = {
     "rtt_ncc_sweep": [_P] * 12 + [_I] * 4 + [_P],
-    "rtt_cost_volume": [_P] * 10 + [_I] * 5 + [_P],
-    "rtt_refine_sweep": [_P] * 6 + [_F] + [_I] * 3 + [_P],
+    "rtt_cost_volume": [_P] * 11 + [_I] * 5 + [_P],
+    "rtt_refine_sweeps": [_P] * 6 + [_F] + [_I] * 4 + [_P],
     "rtt_ba_coupling": [_P] * 3 + [_I] * 4 + [_P],
     "rtt_ncc_sweep_mxu": [_P] * 13 + [_I] * 4 + [_P],
 }
@@ -72,18 +73,39 @@ def _nvcc() -> str:
                        "toolkit (CUDA_HOME or nvcc on PATH)")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; append their output to the build log
+    and raise after all have ended if any failed."""
+    global build_log
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        build_log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(path: Path) -> None:
     """Compile csrc/*.cu into ``path`` (atomic rename, safe across processes)."""
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    cus = [s for s in sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cus]
+    build_log = ""
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{build_log}")
+    try:
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(cus, objs)])
+        _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
 

@@ -7,8 +7,10 @@ tensors it launches its kernel or raises; there is no fallback.  Each
 wrapper counts its launches in a plain integer attribute (`.launches`).
 
 Layouts are the reference's: images (H, W, C) float32, centered on the
-uint8 grid (value - 128); per-pixel maps (H, W); the cost volume
-(H, W, s_cap).
+uint8 grid (value - 128); per-pixel maps (H, W).  The cost volume is
+slot-major, (H, s_cap, W) (the reference's is (H, W, s_cap)): the refine
+sweep (K2) reads one slot of neighbouring pixels from neighbouring
+addresses, and K3 writes it along x.
 """
 
 from __future__ import annotations
@@ -157,7 +159,7 @@ def cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
                       s_cap: int, band: int) -> torch.Tensor:
     """Plain PyTorch banded 3x3 cost volume.
 
-    cv[y, x, j] = (1 - NCC3x3(x, x + s)) / 2 for s = base_b[y // band] + j
+    cv[y, j, x] = (1 - NCC3x3(x, x + s)) / 2 for s = base_b[y // band] + j
     inside [lo_b, hi_b] of that band, 0.5 elsewhere.  Shifts are written in
     ascending order at slot clamp(s - base, 0, s_cap - 1), as the
     reference's clamped `dynamic_update_slice`: a band whose range lies
@@ -165,7 +167,7 @@ def cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
     last shift in the edge slot."""
     H, W, C = L.shape
     dev = L.device
-    cv = torch.full((H, W, s_cap), 0.5, dtype=torch.float32, device=dev)
+    cv = torch.full((H, s_cap, W), 0.5, dtype=torch.float32, device=dev)
     rows = torch.arange(H, device=dev)
     base = base_b.long()[rows // band]
     lo = lo_b.long()[rows // band]
@@ -187,8 +189,11 @@ def cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
         a = fma32(-nmuL, muRp[:, cols], cross) * invL
         xi = fma32(-(a * 0.5), invRp[:, cols], 0.5)
         slot = (s - base[sel]).clamp(0, s_cap - 1)
-        cv[sel[:, None], xs, slot[:, None]] = xi[sel]
+        cv[sel[:, None], slot[:, None], xs] = xi[sel]
     return cv
+
+
+MAX_SLOTS = 128   # K3 keeps a band's filled range (at most s_cap shifts) in shared memory
 
 
 def cost_volume(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
@@ -197,7 +202,12 @@ def cost_volume(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
 
     L, R: (H, W, C) f32 centered images; nmuL, invL, muR, invR: (H, W)
     radius-1 moments (nmuL = 9C * mean); base_b, lo_b, hi_b: (nb,) int32
-    per-band slot base and filled shift range.  Returns (H, W, s_cap) f32.
+    per-band slot base and filled shift range.  Returns (H, s_cap, W) f32.
+    The kernel sums the window products in int8 x int32, exact for images
+    on the integer grid [-128, 127] (centered uint8 values); it flags any
+    value it reads off that grid, and the wrapper then raises (reading the
+    flag back waits for the kernel).  It takes at most 4 channels and
+    MAX_SLOTS slots.
     """
     if _dispatch(L):
         return cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b,
@@ -209,11 +219,19 @@ def cost_volume(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
         (L, f32, (H, W, C)), (R, f32, (H, W, C)), (nmuL, f32, (H, W)),
         (invL, f32, (H, W)), (muR, f32, (H, W)), (invR, f32, (H, W)),
         (base_b, i32, (nb,)), (lo_b, i32, (nb,)), (hi_b, i32, (nb,))])
-    cv = torch.empty((H, W, s_cap), dtype=f32, device=dev)
+    if not (1 <= C <= 4 and 1 <= s_cap <= MAX_SLOTS):
+        raise ValueError(f"cost_volume: {C} channels, {s_cap} slots; the "
+                         f"kernel takes 1..4 and 1..{MAX_SLOTS}")
+    cv = torch.empty((H, s_cap, W), dtype=f32, device=dev)
+    off_grid = torch.zeros(1, dtype=i32, device=dev)
     _build.launch("rtt_cost_volume", *[a.data_ptr() for a in (
-        L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b, cv)],
+        L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b, cv, off_grid)],
         H, W, C, s_cap, band)
     cost_volume.launches += 1
+    if int(off_grid.item()):
+        raise ValueError("cost_volume: images must be centered uint8 values "
+                         "(integers in [-128, 127]); the kernel's int8 sums "
+                         "are exact only there")
     return cv
 
 

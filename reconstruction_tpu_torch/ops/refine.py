@@ -1,15 +1,16 @@
-"""K2 (one Jacobi sweep of the subpixel refine): the wrapper of
-`csrc/refine.cu` beside its plain PyTorch version, and the sweep loop
-with the reference's window re-extraction.
+"""K2 (Jacobi sweeps of the subpixel refine, several per launch): the
+wrapper of `csrc/refine.cu` beside its plain PyTorch version, and the
+sweep loop with the reference's window re-extraction.
 
 The reference reads its three parabola taps from a 32-slot window of the
 banded cost volume, frozen at the anchors of the last extraction (the
 TPU could not afford a per-pixel gather).  Here the window is only a
 pair of per-pixel integers: ``j0``, the volume slot of window slot 0,
 and ``jref``, the anchor trunc(d - 1.5) at extraction.  A tap at window
-slot jj reads cv[y, x, j0 + jj] when 0 <= jj < 32 and the slot lies in
+slot jj reads cv[y, j0 + jj, x] when 0 <= jj < 32 and the slot lies in
 the volume, and the neutral 0.5 otherwise, which is exactly what the
-reference's select chain returns.
+reference's select chain returns.  The volume is slot-major,
+(H, s_cap, W), so that neighbouring pixels' taps lie side by side.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from reconstruction_tpu_torch.utils.fp import exp_xla, fma32
 
 MINI = 32     # window slots (the reference's mini volume)
 CENTER = 16   # window slot of the center candidate at extraction
+SWEEPS_PER_LAUNCH = 6   # T: sweeps a K2 launch runs (measured on the H100)
 
 
 def window_anchors(d: torch.Tensor, base: torch.Tensor
@@ -41,7 +43,7 @@ def refine_sweep_plain(d, cv, j0, jref, inner, ws: float) -> torch.Tensor:
     """One sweep in plain PyTorch: the reference's `_refine_math` over
     taps read by direct index, rounded as the reference compiles it (its
     exp, and a fused multiply-add in each of the two blend numerators)."""
-    S = cv.shape[-1]
+    S = cv.shape[1]
     nm = float(NOMATCH)
     dN = shifted(d, -1, 0, fill=nm)
     dS = shifted(d, 1, 0, fill=nm)
@@ -57,7 +59,7 @@ def refine_sweep_plain(d, cv, j0, jref, inner, ws: float) -> torch.Tensor:
         jj = j + off
         k = j0 + jj
         ok = (jj >= 0) & (jj < MINI) & (k >= 0) & (k < S)
-        v = torch.gather(cv, 2, k.clamp(0, S - 1).long()[..., None])[..., 0]
+        v = torch.gather(cv, 1, k.clamp(0, S - 1).long()[:, None])[:, 0]
         taps.append(torch.where(ok, v, half))
     xi0, xi1, xi2 = taps
 
@@ -87,28 +89,52 @@ def refine_sweep_plain(d, cv, j0, jref, inner, ws: float) -> torch.Tensor:
     return torch.where((d != nm) & inner, new_d, d)
 
 
-def refine_sweep(d, cv, j0, jref, inner, ws: float) -> torch.Tensor:
-    """K2 on CUDA tensors, the plain sweep on CPU tensors.
+def refine_sweeps_fused_plain(d, cv, j0, jref, inner, ws: float,
+                              n: int) -> torch.Tensor:
+    """n plain sweeps with one window."""
+    for _ in range(n):
+        d = refine_sweep_plain(d, cv, j0, jref, inner, ws)
+    return d
 
-    d: (H, W) f32; cv: (H, W, s_cap) f32; j0: (H, W) int32; jref: (H, W)
+
+def refine_sweeps_fused(d, cv, j0, jref, inner, ws: float, n: int
+                        ) -> torch.Tensor:
+    """n sweeps with one window: K2 on CUDA tensors, ceil(n / T) launches of
+    at most T = SWEEPS_PER_LAUNCH sweeps each; the plain sweeps on CPU
+    tensors.
+
+    d: (H, W) f32; cv: (H, s_cap, W) f32; j0: (H, W) int32; jref: (H, W)
     f32; inner: (H, W) bool (valid pixels here update).  Returns the new
-    (H, W) disparity."""
+    (H, W) disparity (d itself when n is 0)."""
     if _dispatch(d):
-        return refine_sweep_plain(d, cv, j0, jref, inner, ws)
+        return refine_sweeps_fused_plain(d, cv, j0, jref, inner, ws, n)
     H, W = d.shape
-    S = cv.shape[-1]
-    dev = _require_cuda("refine_sweep", [
-        (d, torch.float32, (H, W)), (cv, torch.float32, (H, W, S)),
+    S = cv.shape[1]
+    dev = _require_cuda("refine_sweeps_fused", [
+        (d, torch.float32, (H, W)), (cv, torch.float32, (H, S, W)),
         (j0, torch.int32, (H, W)), (jref, torch.float32, (H, W)),
         (inner, torch.bool, (H, W))])
-    out = torch.empty((H, W), dtype=torch.float32, device=dev)
-    _build.launch("rtt_refine_sweep", *[a.data_ptr() for a in (
-        d, out, cv, j0, jref, inner)], float(ws), H, W, S)
-    refine_sweep.launches += 1
-    return out
+    bufs = [torch.empty((H, W), dtype=torch.float32, device=dev)
+            for _ in range(min(n, 2))]
+    done = 0
+    while done < n:
+        k = min(SWEEPS_PER_LAUNCH, n - done)
+        out = bufs[(done // SWEEPS_PER_LAUNCH) % 2]    # never the buffer it reads
+        _build.launch("rtt_refine_sweeps", *[a.data_ptr() for a in (
+            d, out, cv, j0, jref, inner)], float(ws), H, W, S, k)
+        refine_sweeps_fused.launches += 1
+        d = out
+        done += k
+    return d
 
 
-refine_sweep.launches = 0
+refine_sweeps_fused.launches = 0
+
+
+def refine_sweep(d, cv, j0, jref, inner, ws: float) -> torch.Tensor:
+    """One sweep: `refine_sweeps_fused` with n = 1 (one K2 launch on CUDA
+    tensors, counted there)."""
+    return refine_sweeps_fused(d, cv, j0, jref, inner, ws, 1)
 
 
 def refine_sweeps(d: torch.Tensor, cv: torch.Tensor, base: torch.Tensor,
@@ -124,7 +150,6 @@ def refine_sweeps(d: torch.Tensor, cv: torch.Tensor, base: torch.Tensor,
     while done < iterations:
         j0, jref = window_anchors(d, base)
         n = min(chunk, iterations - done)
-        for _ in range(n):
-            d = refine_sweep(d, cv, j0, jref, inner, ws)
+        d = refine_sweeps_fused(d, cv, j0, jref, inner, ws, n)
         done += n
     return d

@@ -56,8 +56,9 @@ def _banded_cost_volume(
     band: int,
     drift: int = 16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xi(y, x, j) = (1 - NCC3x3(x, x + base(y) + j)) / 2 for j < s_cap,
-    0.5 outside each band's filled range.  Returns (cv (H, W, s_cap),
+    """xi(y, j, x) = (1 - NCC3x3(x, x + base(y) + j)) / 2 for j < s_cap,
+    0.5 outside each band's filled range.  Returns (cv (H, s_cap, W),
+    slot-major, the reference's volume with its last two axes swapped;
     base (H,) int32)."""
     H, W = disp.shape
     L, R = _centered(imgL), _centered(imgR)

@@ -1,5 +1,6 @@
-"""Kernels K1 (sweep), K3 (cost volume) and K2 (refine sweep) against their
-plain PyTorch versions on the card.  CUDA only: skipped on a machine
+"""Kernels K1 (sweep), K3 (cost volume, slot-major), K2 (refine sweeps, T a
+launch), K4 (BA coupling) and K5 (tensor-core sweep) against their plain
+PyTorch versions on the card.  CUDA only: skipped on a machine
 without a GPU (there is no interpret mode for a CUDA kernel).  On the
 card (whose machine has no jax for tests/conftest.py):
 python -m pytest --noconftest tests/test_torch_kernels.py -q"""
@@ -60,7 +61,13 @@ def test_k3_cost_volume_equals_plain(dev):
     m, mR = moments(L, 1), moments(R, 1)
     args = (L, R, (m.n * m.mean).contiguous(), m.inv_norm, mR.mean,
             mR.inv_norm, base_b, lo_b, hi_b, 64, 48)
-    assert torch.equal(K.cost_volume(*args), K.cost_volume_plain(*args))
+    n0 = K.cost_volume.launches
+    cvk = K.cost_volume(*args)
+    assert K.cost_volume.launches == n0 + 1
+    assert cvk.shape == (H, 64, W)
+    assert torch.equal(cvk, K.cost_volume_plain(*args))
+    with pytest.raises(ValueError):
+        K.cost_volume(L + 0.5, *args[1:])
 
 
 def test_k2_refine_sweeps_equal_plain(dev):
@@ -82,13 +89,44 @@ def test_k2_refine_sweeps_equal_plain(dev):
     assert torch.equal(dk, dp)
 
 
+@pytest.mark.parametrize("n", [1, 5, 6, 12, 13])
+def test_k2_fused_sweeps_equal_plain(dev, n):
+    """n sweeps in ceil(n / T) launches equal n plain sweeps, also across a
+    window re-extraction (refine_sweeps with recenter_every = n)."""
+    from reconstruction_tpu_torch.ops import refine as K2
+    from reconstruction_tpu_torch.stereo.refine import _banded_cost_volume
+    L, R, valid, _ = _scene(dev, H=300, W=260)
+    H, W = valid.shape
+    g = torch.Generator(device=dev).manual_seed(n)
+    d = torch.where(valid, 12.0 + torch.randint(-2, 3, (H, W), generator=g,
+                                                device=dev).float(),
+                    torch.tensor(float(NOMATCH), device=dev))
+    cv, base = _banded_cost_volume(L + 128, R + 128, d, 64, 48)
+    j0, jref = K2.window_anchors(d, base)
+    n0 = K2.refine_sweeps_fused.launches
+    dk = K2.refine_sweeps_fused(d, cv, j0, jref, valid, 0.03, n)
+    assert K2.refine_sweeps_fused.launches == n0 + -(-n // K2.SWEEPS_PER_LAUNCH)
+    dp = K2.refine_sweeps_fused_plain(d, cv, j0, jref, valid, 0.03, n)
+    assert torch.equal(dk, dp)
+    assert bool((dk != d)[valid].float().mean() > 0.3)
+    rk = K2.refine_sweeps(d, cv, base, valid, 2 * n, 0.03, n)
+    rp = d
+    for _ in range(2):
+        ja, jb = K2.window_anchors(rp, base)
+        rp = K2.refine_sweeps_fused_plain(rp, cv, ja, jb, valid, 0.03, n)
+    assert torch.equal(rk, rp)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from reconstruction_tpu_torch.ops import refine as K2
     d = torch.zeros((8, 8), device=dev)
+    args = (torch.zeros((8, 4, 8), device=dev),
+            torch.zeros((8, 8), dtype=torch.int32, device=dev), d,
+            torch.ones((8, 8), dtype=torch.bool, device=dev), 0.03)
     with pytest.raises(TypeError):
-        K2.refine_sweep(d.double(), torch.zeros((8, 8, 4), device=dev),
-                        torch.zeros((8, 8), dtype=torch.int32, device=dev),
-                        d, torch.ones((8, 8), dtype=torch.bool, device=dev), 0.03)
+        K2.refine_sweep(d.double(), *args)
+    with pytest.raises(ValueError):   # a (H, W, s_cap) volume
+        K2.refine_sweeps_fused(d, args[0].permute(0, 2, 1), *args[1:], 6)
 
 
 def test_k3_cost_volume_clamped_edge_slots_equal_plain(dev):
@@ -109,8 +147,8 @@ def test_k3_cost_volume_clamped_edge_slots_equal_plain(dev):
                 mR.inv_norm, base_b, lo_b, hi_b, s_cap, 48)
         cvk = K.cost_volume(*args)
         assert torch.equal(cvk, K.cost_volume_plain(*args))
-        assert bool((cvk[:48, :, 0] != 0.5).any())
-        assert bool((cvk[48:96, :, s_cap - 1] != 0.5).any())
+        assert bool((cvk[:48, 0] != 0.5).any())
+        assert bool((cvk[48:96, s_cap - 1] != 0.5).any())
 
 
 @pytest.mark.parametrize("O,M", [(8, 1000), (3, 257), (20, 64)])

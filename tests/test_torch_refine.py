@@ -1,7 +1,9 @@
 """Port vs reference: the banded cost volume and the subpixel refine,
 both bit-equal (the refine follows the reference's compiled exp and
 fused multiply-adds; without them, ULP differences flip trunc(d - 1.5)
-anchors within two sweeps on a smooth scene)."""
+anchors within two sweeps on a smooth scene).  The port's volume is
+slot-major, (H, s_cap, W); it is compared with the reference's
+(H, W, s_cap) after swapping its last two axes."""
 
 import numpy as np
 import pytest
@@ -42,7 +44,7 @@ def test_banded_cost_volume_exact(scene, s_cap, band, drift):
     cv_g, base_g = tr._banded_cost_volume(T(imgL), T(imgR), T(d), s_cap, band,
                                           drift=drift)
     assert_equal(base_r, base_g, "base")
-    assert_equal(cv_r, cv_g, "cv")
+    assert_equal(cv_r, cv_g.permute(0, 2, 1), "cv")
 
 
 @pytest.mark.parametrize("s_cap,band", [(32, 8), (1, 16)])
@@ -59,7 +61,7 @@ def test_banded_cost_volume_clamps_slots_beyond_the_image(scene, s_cap, band):
     cv_r, base_r = jr._banded_cost_volume(J(imgL), J(imgR), J(d), s_cap, band)
     cv_g, base_g = tr._banded_cost_volume(T(imgL), T(imgR), T(d), s_cap, band)
     assert_equal(base_r, base_g, "base")
-    assert_equal(cv_r, cv_g, "cv")
+    assert_equal(cv_r, cv_g.permute(0, 2, 1), "cv")
     assert (np.asarray(cv_r)[:16, :, 0] != 0.5).any()          # edge writes
     assert (np.asarray(cv_r)[16:32, :, s_cap - 1] != 0.5).any()
 
@@ -97,6 +99,36 @@ def test_refine_vs_pallas_kernel(scene):
     got = tr.disparity_refine(T(disp), T(imgL), T(imgR), mt, iterations=24,
                               s_cap=32, band=8, recenter_every=-1)
     assert_equal(ref, got, "refine vs pallas")
+
+
+@pytest.mark.parametrize("n", [5, 12, 13])
+def test_fused_sweeps_equal_single_sweeps(scene, n):
+    """n single sweeps and refine_sweeps_fused (the plain version on the
+    CPU), one window each, equal the reference's n sweeps without a
+    re-extraction, for n below, at and off a multiple of the kernel's
+    T = 6; refine_sweeps equals it across a re-extraction."""
+    from reconstruction_tpu_torch.ops import refine as K2
+    from reconstruction_tpu_torch.stereo.margins import inner_box
+    imgL, imgR, disp, valid = scene
+    mj, mt = margins(valid)
+    H, W = disp.shape
+    cv, base = tr._banded_cost_volume(T(imgL), T(imgR), T(disp), 32, 8)
+    inner = inner_box(mt, H, W, inset=1)
+    d = T(disp)
+    j0, jref = K2.window_anchors(d, base)
+    single = d
+    for _ in range(n):
+        single = K2.refine_sweep(single, cv, j0, jref, inner, 0.03)
+    fused = K2.refine_sweeps_fused(d, cv, j0, jref, inner, 0.03, n)
+    ref = jr.disparity_refine(J(disp), J(imgL), J(imgR), mj, iterations=n,
+                              s_cap=32, band=8, recenter_every=0)
+    assert_equal(ref, single, f"{n} single sweeps")
+    assert_equal(ref, fused, f"fused {n}")
+    assert (fused.numpy() != disp).mean() > 0.3
+    ref = jr.disparity_refine(J(disp), J(imgL), J(imgR), mj, iterations=2 * n,
+                              s_cap=32, band=8, recenter_every=n)
+    got = K2.refine_sweeps(d, cv, base, inner, 2 * n, 0.03, n)
+    assert_equal(ref, got, f"refine_sweeps {2 * n}/{n}")
 
 
 def test_fma32_and_exp_round_like_the_reference(rng):
