@@ -13,21 +13,25 @@ Phases (any failure raises; the exit code is then non-zero):
   2. nvcc build of reconstruction_tpu_torch/csrc/*.cu (one process per
      source, into reconstruction_tpu_torch/_build/)
   3. each kernel against its plain version on the same inputs, bit-equal:
-     K1 sweep (64-shift and guided cases), K3 cost volume (slot-major,
+     K1 sweep (64-shift, guided +-2 with hole rows, rematch-style sparse
+     holes; the blocks in each of its modes), K3 cost volume (slot-major,
      64-row bands and an edge-clamp case), K2 fused sweeps against as many
      plain single sweeps (30 across a window re-extraction, and 13), K5
      tensor-core sweep (also against K1), all at H=1920, W=1280, C=3; K4
      coupling at E=18, O=8, M=65,536, C=16.  Each kernel's device time
      (torch.profiler) beside its bound (bytes or float32 operations of
      this run's inputs at the H100's peak rates; K2's taps counted once a
-     launch) and its plain version's time; K3's and K5's whole wrapper
-     call, which waits for a check; K3 beside a plain fill of a volume of
-     its size; K4 beside scatter_add_ (the library yardstick)
+     launch) and its plain version's time; K1's, K3's and K5's whole
+     wrapper call, which reads back an integer-grid flag; K1 also on the
+     guided and rematch cases, and timed by CUDA events around its launch
+     (the profiler's stand-in where a session records no kernel); K3 beside a plain fill of a volume of its
+     size; K4 beside scatter_add_ (the library yardstick)
   4. match_pair on a rendered 1280x1920 two-view scene, preset "myself",
      twice, with the kernels' launch counts, per-level times, cloud
      metrics and determinism, then torch.profiler over a third, warm run
-     (device time and launches by kernel); the same path on a small scene
-     against the plain CPU path
+     (device time and launches by kernel), and K1's launches of a fourth,
+     one line each (call, shape, useful and evaluated pairs, modes, time,
+     bound); the same path on a small scene against the plain CPU path
   5. ncc_sweep_match_mxu at the 64-shift 1920x1280 cell, equal to
      ncc_sweep_match (K1) on the same inputs, profiled
   6. bundle_adjust at 16 cameras, 65,536 points, 8 observations per
@@ -96,17 +100,53 @@ def bound(nbytes: float, ops: float) -> dict:
                 bound_bytes=nbytes, bound_ops=ops)
 
 
+def useful_pairs(active, lo, hi) -> float:
+    """The (pixel, target) pairs the sweep scores: each active pixel's
+    bounds clipped to the image's columns."""
+    import torch
+    W = lo.shape[1]
+    n = hi.clamp(max=W - 1) - lo.clamp(min=0) + 1
+    return float(torch.where(active, n.clamp_min(0), 0).double().sum())
+
+
 def sweep_bound(L, active, lo, hi, r) -> dict:
     """K1's and K5's function: inputs L, R (H, W, C) f32, six (H, W) f32 or
     int32 maps and two bool maps read once, score and column written once;
-    per active pixel and shift in its bounds, C multiplies and C-1 adds of
+    per (active pixel, target) pair it scores, C multiplies and C-1 adds of
     the product, 4r adds of the separable box and 5 for the score and the
     compare."""
-    import torch
     H, W, C = L.shape
     nbytes = H * W * (2 * C * 4 + 6 * 4 + 2 + 2 * 4)
-    pairs = float(torch.where(active, (hi - lo + 1).clamp_min(0), 0).double().sum())
-    return bound(nbytes, pairs * (2 * C - 1 + 4 * r + 5))
+    return bound(nbytes, useful_pairs(active, lo, hi) * (2 * C - 1 + 4 * r + 5))
+
+
+def k1_plan(K13, active, lo, hi, r) -> dict:
+    """K1's evaluated pairs and modes (`ops.ncc_sweep.sweep_plan`); -1 each
+    for a package whose K1 has no modes (the one before its redesign, run
+    by this script for an A/B)."""
+    if hasattr(K13, "sweep_plan"):
+        return K13.sweep_plan(active, lo, hi, r)
+    return dict(evaluated=-1, heaviest_block=-1, sweep_blocks=-1,
+                candidate_blocks=-1)
+
+
+def tile_union_pairs(active, lo, hi, tx: int, ty: int) -> float:
+    """Pairs a sweep evaluates that runs every pixel slot of each tx x ty
+    tile over the union of its active pixels' shift ranges (clipped to
+    +-(W-1)): the rule of K1 before its redesign, 32 x 8 tiles."""
+    import torch
+    import torch.nn.functional as F
+    H, W = lo.shape
+    x = torch.arange(W, dtype=torch.int32, device=lo.device)[None, :]
+    big = 1 << 20
+    ph, pw = -H % ty, -W % tx
+    smin = F.pad(torch.where(active, lo - x, big), (0, pw, 0, ph), value=big)
+    smax = F.pad(torch.where(active, hi - x, -big), (0, pw, 0, ph), value=-big)
+    tiles = lambda m: m.reshape((H + ph) // ty, ty, (W + pw) // tx, tx)
+    smin = tiles(smin).amin((1, 3)).clamp(-(W - 1), W - 1)
+    smax = tiles(smax).amax((1, 3)).clamp(-(W - 1), W - 1)
+    n = (smax - smin + 1).clamp_min(0)
+    return float(n.double().sum()) * tx * ty
 
 
 def volume_bound(cargs) -> dict:
@@ -170,24 +210,86 @@ def report(name: str, res: dict, card: str) -> None:
         f"{'none' if lib is None else f'{lib:.4f} ms'} ({card})")
 
 
-def kernel_ms(fn, name: str, reps: int) -> float:
-    """Milliseconds of device time per call of ``fn`` spent in kernels whose
-    name contains ``name``, from torch.profiler over ``reps`` calls after a
-    warm-up: the kernel alone, without its wrapper's host work (K3's and
-    K5's wrappers wait for an integer-grid check) and the host's gaps."""
+def device_events(run, attempts: int = 3) -> list:
+    """The device events of torch.profiler (CPU and CUDA activity) over
+    ``run``.  The profiler on the card's machine now and then records no
+    device event in a session; such a session is run again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    raise AssertionError(f"the profiler recorded no device event in {attempts} sessions")
+
+
+def launch_event_ms(fn, reps: int) -> float:
+    """Milliseconds per kernel launch of ``fn`` (reps calls) from CUDA events
+    recorded around each `_build.launch`.  A spin kernel holds the stream
+    while the host queues the events and the launch, so no host gap falls
+    between them: the kernel's time plus two event records."""
+    import torch
+    from reconstruction_tpu_torch.ops import _build
+    real, pairs = _build.launch, []
+
+    def timed(entry, *args):
+        torch.cuda._sleep(1 << 18)     # ~0.15 ms of spinning at the card's clock
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(entry, *args)
+        end.record()
+        pairs.append((start, end))
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    _build.launch = timed
+    try:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name)
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no kernel named like {name}")
-    return us / 1e3 / reps
+    finally:
+        _build.launch = real
+    torch.cuda.synchronize()
+    if not pairs:
+        raise AssertionError("no kernel launch to time")
+    return sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
+
+
+def kernel_ms(fn, name: str, reps: int, sessions: int = 4) -> float:
+    """Milliseconds of device time per call of ``fn`` spent in kernels whose
+    name contains ``name``, from torch.profiler: the kernel alone, without
+    its wrapper's host work (K1's, K3's and K5's wrappers wait for an
+    integer-grid flag) and the host's gaps.  The profiler on the card's
+    machine drops events at the start of a session, so the session runs
+    2 * reps calls and the last reps launches it recorded are averaged.
+    Now and then a session records none of the kernels (only the flag's
+    copies): it is run again, and after ``sessions`` such sessions the
+    time comes from `launch_event_ms`, which the log says."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(2 * reps):
+            fn()
+
+    for _ in range(sessions):
+        dev_events = device_events(run)
+        hits = sorted((e for e in dev_events if name in e.name),
+                      key=lambda e: e.time_range.start)[-reps:]
+        if len(hits) >= max(1, reps // 2):
+            return sum(e.time_range.elapsed_us() for e in hits) / 1e3 / len(hits)
+        seen = sorted({e.name[:60] for e in dev_events})
+        log(f"  the profiler saw {len(hits)} kernels named like {name} in "
+            f"{2 * reps} calls (device events: {seen}); profiling again")
+    ms = launch_event_ms(fn, reps)
+    log(f"  {name}: {ms:.4f} ms from CUDA events around the launch, after "
+        f"{sessions} profiler sessions without it")
+    return ms
 
 
 def phase_kernels(card: str) -> dict:
@@ -231,25 +333,51 @@ def phase_kernels(card: str) -> dict:
     for row in (100, 101, 900, 1500):
         lo2[row] = 2
         hi2[row] = W - 3
-    errs, cases = [], [(lo, hi), (lo2.contiguous(), hi2.contiguous())]
-    for i, (a, b) in enumerate(cases):
-        args = margs + (valid, valid, a, b, r)
+    # K1, case 3: rematch-style sparse holes (2%) with bounds up to 80 wide.
+    holes = valid & (torch.rand((H, W), generator=gen, device=dev) < 0.02)
+    lo3 = torch.clamp(x + torch.randint(-40, 1, (H, W), generator=gen, device=dev,
+                                        dtype=torch.int32), 0, W - 1)
+    hi3 = torch.clamp(lo3 + torch.randint(0, 81, (H, W), generator=gen, device=dev,
+                                          dtype=torch.int32), 0, W - 1)
+    errs = []
+    cases = [(valid, lo, hi), (valid, lo2.contiguous(), hi2.contiguous()),
+             (holes, lo3.contiguous(), hi3.contiguous())]
+    for i, (act, a, b) in enumerate(cases):
+        args = margs + (valid, act, a, b, r)
         sk, tk = K13.ncc_sweep(*args)
         sp, tp = K13.ncc_sweep_plain(*args)
         torch.cuda.synchronize()
         equal = torch.equal(sk, sp) and torch.equal(tk, tp)
         err = max(float((sk - sp).abs().max()), float((tk - tp).abs().max()))
+        plan = k1_plan(K13, act, a, b, r)
         log(f"K1 ncc_sweep case {i}: bit-equal={equal} max_abs_err={err} "
-            f"matched={int((tk >= 0).sum())}")
+            f"matched={int((tk >= 0).sum())} blocks in sweep mode "
+            f"{plan['sweep_blocks']}, in candidate mode {plan['candidate_blocks']}")
         if not equal:
             raise AssertionError(f"K1 case {i} differs from its plain version")
         errs.append(err)
     args = margs + (valid, valid, lo, hi, r)
-    ms = kernel_ms(lambda: K13.ncc_sweep(*args), "ncc_sweep_kernel", 10)
+    ms = kernel_ms(lambda: K13.ncc_sweep(*args), "ncc_sweep_kernel", 20)
+    # kernel_ms's last resort, run on every pass so that it is known to work.
+    event_ms = launch_event_ms(lambda: K13.ncc_sweep(*args), 20)
+    call_ms = cuda_ms(lambda: K13.ncc_sweep(*args), 20)
     plain_ms = cuda_ms(lambda: K13.ncc_sweep_plain(*args), 2)
     results["ncc_sweep"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                                library_ms=None, **sweep_bound(L, valid, lo, hi, r))
+                                library_ms=None, call_ms=call_ms, event_ms=event_ms,
+                                **sweep_bound(L, valid, lo, hi, r))
     report(f"K1 ncc_sweep 64 shifts {H}x{W}", results["ncc_sweep"], card)
+    log(f"K1 ncc_sweep 64 shifts: {event_ms:.4f} ms from CUDA events around "
+        f"the launch (profiler {ms:.4f} ms)")
+    # The guided and rematch yardsticks: cases 1 and 2.
+    for label, (act, a, b) in (("guided +-2 with hole rows", cases[1]),
+                               ("rematch-style holes", cases[2])):
+        yargs = margs + (valid, act, a, b, r)
+        y_ms = kernel_ms(lambda: K13.ncc_sweep(*yargs), "ncc_sweep_kernel", 10)
+        yb = sweep_bound(L, act, a, b, r)
+        log(f"K1 ncc_sweep {label} {H}x{W}: kernel {y_ms:.4f} ms, bound "
+            f"{yb['bound_ms']:.4f} ms ({yb['bound_by']}), "
+            f"{100 * yb['bound_ms'] / y_ms:.1f}% of the bound ({card})")
+        results["ncc_sweep"][label] = dict(ms=y_ms, bound_ms=yb["bound_ms"])
 
     # K3: the banded cost volume, s_cap 128, band 64, around d ~ 40; and
     # the clamped edge slots of bands whose range lies beyond +-W.
@@ -419,21 +547,14 @@ def profile_run(run, label: str, card: str, top: int = 12) -> dict:
     """torch.profiler (CPU and CUDA activity) over one warm ``run``: device
     time and launches summed by kernel name, the port's kernels apart."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    events = device_events(run)
     wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    if not by_name:
-        raise AssertionError(f"{label}: the profiler recorded no device time")
     busy = sum(ms for ms, _ in by_name.values())
     port = {}
     for key, sub in PORT_KERNELS.items():
@@ -451,6 +572,96 @@ def profile_run(run, label: str, card: str, top: int = 12) -> dict:
         log(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy, port_kernels=port,
                 top=[dict(name=k, ms=v[0], launches=v[1]) for k, v in ranked])
+
+
+def _sweep_caller():
+    """(level, call) of the matcher that is calling the sweep, from the
+    stack: the pyramid level of `match_one_level` (0 is the coarsest) and
+    brute, guided or rematch."""
+    f, level, call = sys._getframe(2), None, None
+    while f is not None:
+        name = f.f_code.co_name
+        if call is None and name in ("brute_force_match", "guided_match", "rematch"):
+            call = name.split("_")[0]
+        if name == "match_one_level":
+            level = f.f_locals["level"]
+            break
+        f = f.f_back
+    return level, call
+
+
+def k1_launch_table(run, card: str) -> dict:
+    """K1's launches in one warm ``run`` of match_pair, one line each: the
+    sweep that `stereo.matching` calls is wrapped here (not in the
+    package) to keep each call's arguments; each call is then replayed
+    under the profiler.  Useful pairs: what the sweep scores; tile-union
+    pairs: what a kernel that sweeps each 32 x 8 tile over its active
+    pixels' shift union evaluates (the rule of K1 before its redesign);
+    K1 evaluated: what K1 evaluates by its own per-block mode rule
+    (`ops.ncc_sweep.sweep_plan`), with its blocks in each mode and the
+    most pairs one block evaluates; maxw: the widest active pixel's target
+    range."""
+    import torch
+    from reconstruction_tpu_torch.ops import ncc_sweep as K13
+    from reconstruction_tpu_torch.stereo import matching
+
+    calls = []
+    real = matching.ncc_sweep
+
+    def capture(*a):
+        level, call = _sweep_caller()
+        calls.append(dict(level=level, call=call, args=tuple(
+            t.clone() if torch.is_tensor(t) else t for t in a)))
+        return real(*a)
+
+    matching.ncc_sweep = capture
+    try:
+        run()
+    finally:
+        matching.ncc_sweep = real
+    seen = {}
+    for c in calls:   # the directions run one after the other per call
+        key = (c["level"], c["call"])
+        c["dir"] = seen.get(key, 0)
+        seen[key] = c["dir"] + 1
+
+    ms_each = [kernel_ms(lambda: K13.ncc_sweep(*c["args"]), "ncc_sweep_kernel", 5)
+               for c in calls]
+    rows = []
+    log(f"K1 launches of one warm match_pair ({card}):")
+    log("   #  lvl dir call     HxW        active   useful pairs  tile-union "
+        "K1 evaluated sweep  cand  heaviest  maxw    ms      bound ms  share")
+    for i, c in enumerate(calls):
+        L, active, lo, hi, r = (c["args"][0], c["args"][7], c["args"][8],
+                                c["args"][9], c["args"][10])
+        H, W = lo.shape
+        ms = ms_each[i]
+        b = sweep_bound(L, active, lo, hi, r)
+        row = dict(level=c["level"], dir=c["dir"], call=c["call"], H=H, W=W,
+                   active=int(active.sum()), useful=useful_pairs(active, lo, hi),
+                   tile_union=tile_union_pairs(active, lo, hi, 32, 8),
+                   max_width=int(torch.where(active, hi.clamp(max=W - 1)
+                                             - lo.clamp(min=0) + 1, 0).max()),
+                   ms=ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        plan = k1_plan(K13, active, lo, hi, r)
+        row.update(evaluated=plan["evaluated"], sweep_blocks=plan["sweep_blocks"],
+                   candidate_blocks=plan["candidate_blocks"],
+                   heaviest_block=plan["heaviest_block"])
+        rows.append(row)
+        log(f"  {i:2d}  {row['level']}   {row['dir']}  {row['call']:7s} "
+            f"{H:4d}x{W:<5d} {row['active']:8d} {row['useful']:13.0f} "
+            f"{row['tile_union']:13.0f} {plan['evaluated']:13d} "
+            f"{plan['sweep_blocks']:5d} {plan['candidate_blocks']:5d} "
+            f"{plan['heaviest_block']:8d} {row['max_width']:5d}  {ms:8.4f}  "
+            f"{b['bound_ms']:8.4f}  {100 * b['bound_ms'] / ms:5.1f}%")
+    tot = {k: sum(r[k] for r in rows) for k in (
+        "active", "useful", "tile_union", "evaluated", "ms", "bound_ms")}
+    log(f"  sum {len(rows)} launches: active {tot['active']}, useful pairs "
+        f"{tot['useful']:.0f}, tile-union pairs {tot['tile_union']:.0f}, K1 "
+        f"evaluated pairs {tot['evaluated']}, {tot['ms']:.4f} ms against a "
+        f"bound of {tot['bound_ms']:.4f} ms ({card})")
+    del calls
+    return dict(launches=rows, total=tot)
 
 
 def cloud_metrics(cloud) -> dict:
@@ -523,10 +734,11 @@ def phase_slice(card: str) -> dict:
         raise AssertionError("two runs of match_pair on the card differ")
     prof = profile_run(lambda: match_pair(*args, device="cuda"),
                        "one warm match_pair", card)
+    k1 = k1_launch_table(lambda: match_pair(*args, device="cuda"), card)
     return dict(launches=launches, wall_s=[wall, wall2],
                 level_ms=[res.level_ms, res2.level_ms], matched_frac=frac,
                 cloud=metrics, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-                profile=prof)
+                profile=prof, k1_launches=k1)
 
 
 def phase_small_reference() -> dict:

@@ -30,3 +30,68 @@ __device__ __forceinline__ float rtt_ncc_score(float cross, float nmu,
                                                float invR) {
   return __fmul_rn(__fmul_rn(__fmaf_rn(-nmu, muR, cross), invL), invR);
 }
+
+// The sweeps' images are centered uint8 values, integers in [-128, 127]:
+// exact in int8, and their products and window sums are exact integers
+// (below 2^22 for a window of up to 7x7 pixels and 4 channels), equal in
+// any order to the reference's float sums.  The kernels convert each value
+// they read and set ``bad`` for one off that grid (a fraction, out of
+// range, NaN); their wrappers raise on the flag.
+__device__ __forceinline__ int rtt_int8(float v, bool& bad) {
+  bad |= !(v == rintf(v) && v >= -128.0f && v <= 127.0f);
+  return __float2int_rn(v);
+}
+
+// Channels of pixel (y, x) packed as int8x4 (zero padded), 0 outside the
+// image (the reference's zero padding).  No branch: the (up to four)
+// loads are predicated and independent, so a thread keeps those of many
+// pixels in flight at once.
+__device__ __forceinline__ int rtt_pack_px(const float* __restrict__ img, int y,
+                                           int x, int H, int W, int C,
+                                           bool& bad) {
+  const bool in = y >= 0 && y < H && x >= 0 && x < W;
+  const float* p = img + (in ? ((size_t)y * W + x) * C : 0);
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = in && c < C ? p[c] : 0.0f;
+  unsigned w = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    w |= ((unsigned)rtt_int8(v[c], bad) & 0xffu) << (8 * c);
+  return (int)w;
+}
+
+// An integer below 2^22 in magnitude as float, exactly: two operations on
+// the full-rate pipes instead of one conversion.
+__device__ __forceinline__ float rtt_small_int_to_float(int v) {
+  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.0f);
+}
+
+// for (r, c) in [0, rows) x [0, n), row-major over the block's threads:
+// v = load(r, c), then store(r, c, v), BATCH loads of each thread in
+// flight at a time; a thread finds its next element by stepping, not
+// dividing.
+template <int BATCH = 4, typename Load, typename Store>
+__device__ __forceinline__ void rtt_stage(int rows, int n, Load load, Store store) {
+  const int nt = blockDim.x, dr = nt / n, dc = nt % n;
+  int r = threadIdx.x / n, c = threadIdx.x % n;
+  while (r < rows) {
+    int rb[BATCH], cb[BATCH];
+    decltype(load(0, 0)) v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      rb[u] = r;
+      cb[u] = c;
+      if (r < rows) v[u] = load(r, c);
+      r += dr;
+      c += dc;
+      if (c >= n) {
+        c -= n;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      if (rb[u] < rows) store(rb[u], cb[u], v[u]);
+  }
+}

@@ -20,7 +20,9 @@
 // [-128, 127], exact in int8; products and their sums (< 2^24) are exact
 // in int32 and again after conversion to float, whatever the order of the
 // sums.  The score is K1's epilogue (`rtt_ncc_score`), so K5 is bit-equal
-// to K1 wherever both visit the same shifts.
+// to K1 wherever both visit the same shifts.  K5 checks every image value
+// it converts (`rtt_int8`) and sets a flag for one off that grid, on which
+// its wrapper raises: no pass of its own over the images.
 //
 // What bounds it on this card.  At the bench shape (1920x1280x3, r=2, one
 // chunk) the products are 1920*1280*128*80*2 = 50 GOP, a few tens of
@@ -66,16 +68,18 @@ constexpr int K5_LDC = 20;                    // fragment store stride (ints)
 // Rows y-r..y+r, columns x0-r .. x0+ncols+r-1 of an (H, W, C) image as
 // int8 in shared memory, [row][col][c], zero outside the image (the
 // reference's zero padding).  Consecutive threads read consecutive floats.
+// Each value is checked as it converts: ``bad`` is set for one off the
+// integer grid (rtt_int8).
 __device__ void load_slab(signed char* __restrict__ slab,
                           const float* __restrict__ img, int y, int x0,
-                          int ncols, int H, int W, int C, int r) {
+                          int ncols, int H, int W, int C, int r, bool& bad) {
   const int pitch = (ncols + 2 * r) * C;
   for (int q = threadIdx.x; q < (2 * r + 1) * pitch; q += K5_THREADS) {
     const int yy = y + q / pitch - r, xx = x0 - r + (q % pitch) / C;
     signed char v = 0;
     if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-      v = static_cast<signed char>(__float2int_rn(
-          img[((size_t)yy * W + xx) * C + q % C]));
+      v = static_cast<signed char>(
+          rtt_int8(img[((size_t)yy * W + xx) * C + q % C], bad));
     slab[q] = v;
   }
 }
@@ -134,7 +138,7 @@ ncc_sweep_mxu_kernel(const float* __restrict__ L, const float* __restrict__ R,
                      const int* __restrict__ lo, const int* __restrict__ hi,
                      const int* __restrict__ srange,
                      float* __restrict__ score, int* __restrict__ tbest,
-                     int H, int W, int C, int r) {
+                     int* __restrict__ off_grid, int H, int W, int C, int r) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // wmma tiles need 32-byte aligned pointers: align the base by hand.
   unsigned char* smem =
@@ -161,6 +165,7 @@ ncc_sweep_mxu_kernel(const float* __restrict__ L, const float* __restrict__ R,
   const int f = warp;                        // this warp's pixel fragment
   const int x = xb0 + 16 * f + i;
   const size_t pix = (size_t)y * W + x;
+  bool bad = false;   // a value read off the integer grid
 
   bool act = false;
   int plo = 0, phi = -1;
@@ -184,7 +189,7 @@ ncc_sweep_mxu_kernel(const float* __restrict__ L, const float* __restrict__ R,
   }
   tap_offsets(sTabL, K5_XB, C, r, taps, ksteps * 16);
   tap_offsets(sTabR, K5_TB, C, r, taps, ksteps * 16);
-  load_slab(sSlabL, L, y, xb0, K5_XB, H, W, C, r);
+  load_slab(sSlabL, L, y, xb0, K5_XB, H, W, C, r, bad);
   __syncthreads();
   if (act) {
     atomicMin(&s_lo, plo - x);
@@ -201,7 +206,7 @@ ncc_sweep_mxu_kernel(const float* __restrict__ L, const float* __restrict__ R,
     const int S0 = s_min + ci * K5_CHUNK;
     if (S0 + K5_CHUNK - 1 < s_lo || S0 > s_hi) continue;   // block-uniform
     const int t0 = xb0 + S0;                 // target column of local col 0
-    load_slab(sSlabR, R, y, t0, K5_TB, H, W, C, r);
+    load_slab(sSlabR, R, y, t0, K5_TB, H, W, C, r, bad);
     for (int j = threadIdx.x; j < K5_TB; j += K5_THREADS) {
       const int t = t0 + j;
       const bool in = t >= 0 && t < W;
@@ -268,6 +273,7 @@ ncc_sweep_mxu_kernel(const float* __restrict__ L, const float* __restrict__ R,
     score[(size_t)y * W + xb0 + p] = b;
     tbest[(size_t)y * W + xb0 + p] = t;
   }
+  if (bad) *off_grid = 1;
 }
 
 }  // namespace
@@ -277,8 +283,8 @@ RTT_API int rtt_ncc_sweep_mxu(const void* L, const void* R, const void* nmuL,
                               const void* invR, const void* validR,
                               const void* active, const void* lo,
                               const void* hi, const void* srange, void* score,
-                              void* tbest, int H, int W, int C, int r,
-                              void* stream) {
+                              void* tbest, void* off_grid, int H, int W, int C,
+                              int r, void* stream) {
   const int ksteps = ((2 * r + 1) * (2 * r + 1) * C + 15) / 16;
   const size_t smem = k5_smem_bytes(ksteps, C, r) + 128;
   cudaError_t err = cudaFuncSetAttribute(
@@ -293,6 +299,6 @@ RTT_API int rtt_ncc_sweep_mxu(const void* L, const void* R, const void* nmuL,
       static_cast<const uint8_t*>(validR), static_cast<const uint8_t*>(active),
       static_cast<const int*>(lo), static_cast<const int*>(hi),
       static_cast<const int*>(srange), static_cast<float*>(score),
-      static_cast<int*>(tbest), H, W, C, r);
+      static_cast<int*>(tbest), static_cast<int*>(off_grid), H, W, C, r);
   return static_cast<int>(cudaGetLastError());
 }

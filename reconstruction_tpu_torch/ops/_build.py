@@ -43,11 +43,11 @@ _F = ctypes.c_float
 
 # C entry points: name -> argument types (pointers and the stream are void*).
 _SIGNATURES = {
-    "rtt_ncc_sweep": [_P] * 12 + [_I] * 4 + [_P],
+    "rtt_ncc_sweep": [_P] * 13 + [_I] * 4 + [_P],
     "rtt_cost_volume": [_P] * 11 + [_I] * 5 + [_P],
     "rtt_refine_sweeps": [_P] * 6 + [_F] + [_I] * 4 + [_P],
     "rtt_ba_coupling": [_P] * 3 + [_I] * 4 + [_P],
-    "rtt_ncc_sweep_mxu": [_P] * 13 + [_I] * 4 + [_P],
+    "rtt_ncc_sweep_mxu": [_P] * 14 + [_I] * 4 + [_P],
 }
 
 

@@ -121,13 +121,74 @@ def sweep_shifts_plain(L, R, nmuL, invL, muR, invR, validR, active, lo, hi,
     return best, bt
 
 
+SWEEP_RADII = (1, 2, 3)   # the window radii K1 is built for
+
+# K1's tiling and mode rule (csrc/ncc_sweep.cu): a block is 2 x 4 warps, a
+# warp 2 * (32 - 2 * ceil(r / 2)) output columns by 4 rows.
+K1_WARP_ROWS, K1_WARPS_X, K1_WARPS_Y = 4, 2, 4
+K1_CAND_RATIO, K1_CAND_SPAN0 = 3, 32
+
+
+def sweep_plan(active, lo, hi, radius: int) -> dict:
+    """What K1 evaluates on these bounds, by the kernel's own rule: per
+    block, sweep mode runs each warp's 256 output slots over the warp's
+    shift union, and takes as long as its longest warp; candidate mode,
+    taken when the union pairs counted at that length (every warp as long
+    as the longest, less K1_CAND_SPAN0 shifts) are more than K1_CAND_RATIO
+    times the block's useful pairs, scores only those, spread over the
+    block's threads.
+    Returns the useful and evaluated pairs, the most pairs one block
+    evaluates, and the blocks in each mode."""
+    H, W = lo.shape
+    wout = 2 * (32 - 2 * ((radius + 1) // 2))
+    bx, by = K1_WARPS_X * wout, K1_WARPS_Y * K1_WARP_ROWS
+    x = torch.arange(W, dtype=torch.int32, device=lo.device)[None, :]
+    a, b = lo.clamp(min=0), hi.clamp(max=W - 1)
+    act = active & (a <= b)
+    big = 1 << 20
+    ph, pw = -H % by, -W % bx
+    pad = lambda m, v: F.pad(m, (0, pw, 0, ph), value=v)
+    n = pad(torch.where(act, b - a + 1, 0).long(), 0)
+    smin = pad(torch.where(act, a - x, big), big)
+    smax = pad(torch.where(act, b - x, -big), -big)
+    Hp, Wp = H + ph, W + pw
+    warps = lambda m: m.reshape(Hp // K1_WARP_ROWS, K1_WARP_ROWS, Wp // wout, wout)
+    span = (warps(smax).amax((1, 3)) - warps(smin).amin((1, 3)) + 1).clamp_min(0)
+    span = span.long().reshape(Hp // by, K1_WARPS_Y, Wp // bx, K1_WARPS_X)
+    slots = 32 * 2 * K1_WARP_ROWS   # output slots of a warp
+    sweep = slots * span.sum((1, 3))
+    useful = n.reshape(Hp // by, by, Wp // bx, bx).sum((1, 3))
+    longest = span.amax((1, 3))
+    union = slots * K1_WARPS_X * K1_WARPS_Y * (longest - K1_CAND_SPAN0)
+    cand = (useful > 0) & (longest > K1_CAND_SPAN0) & (union > K1_CAND_RATIO * useful)
+    work = torch.where(cand, useful, sweep)
+    return dict(useful=int(useful.sum()), evaluated=int(work.sum()),
+                heaviest_block=int(work.max()),
+                candidate_blocks=int(cand.sum()),
+                sweep_blocks=int(((useful > 0) & ~cand).sum()),
+                blocks=cand.numel())
+
+
+def check_off_grid(name: str, off_grid: torch.Tensor) -> None:
+    """Raise if a kernel flagged an image value off the integer grid (reading
+    the flag back waits for the kernel)."""
+    if int(off_grid.item()):
+        raise ValueError(f"{name}: images must be centered uint8 values "
+                         "(integers in [-128, 127]); the kernel's int8 sums "
+                         "are exact only there")
+
+
 def ncc_sweep(L, R, nmuL, invL, muR, invR, validR, active, lo, hi,
               radius: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on CUDA tensors, the plain sweep on CPU tensors.
 
     L, R: (H, W, C) f32 centered images; nmuL = n * mean of L's windows,
     invL, muR, invR: (H, W) f32 moments; validR, active: (H, W) bool;
-    lo, hi: (H, W) int32 absolute target-column bounds.
+    lo, hi: (H, W) int32 absolute target-column bounds.  The kernel sums
+    the window products in int8 x int32, exact for images on the integer
+    grid [-128, 127] (centered uint8 values): it flags any value it reads
+    off that grid, and the wrapper then raises.  It takes at most 4
+    channels and the radii SWEEP_RADII.
     """
     if _dispatch(L):
         return ncc_sweep_plain(L, R, nmuL, invL, muR, invR, validR, active,
@@ -139,12 +200,17 @@ def ncc_sweep(L, R, nmuL, invL, muR, invR, validR, active, lo, hi,
         (invL, f32, (H, W)), (muR, f32, (H, W)), (invR, f32, (H, W)),
         (validR, torch.bool, (H, W)), (active, torch.bool, (H, W)),
         (lo, i32, (H, W)), (hi, i32, (H, W))])
+    if not (1 <= C <= 4 and radius in SWEEP_RADII):
+        raise ValueError(f"ncc_sweep: {C} channels, radius {radius}; the "
+                         f"kernel takes 1..4 channels and radii {SWEEP_RADII}")
     score = torch.empty((H, W), dtype=f32, device=dev)
     t = torch.empty((H, W), dtype=i32, device=dev)
+    off_grid = torch.zeros(1, dtype=i32, device=dev)
     _build.launch("rtt_ncc_sweep", *[a.data_ptr() for a in (
-        L, R, nmuL, invL, muR, invR, validR, active, lo, hi, score, t)],
-        H, W, C, radius)
+        L, R, nmuL, invL, muR, invR, validR, active, lo, hi, score, t,
+        off_grid)], H, W, C, radius)
     ncc_sweep.launches += 1
+    check_off_grid("ncc_sweep", off_grid)
     return score, t
 
 
@@ -228,10 +294,7 @@ def cost_volume(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
         L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b, cv, off_grid)],
         H, W, C, s_cap, band)
     cost_volume.launches += 1
-    if int(off_grid.item()):
-        raise ValueError("cost_volume: images must be centered uint8 values "
-                         "(integers in [-128, 127]); the kernel's int8 sums "
-                         "are exact only there")
+    check_off_grid("cost_volume", off_grid)
     return cv
 
 

@@ -11,7 +11,8 @@ ascending order from its start (the last chunk runs to its full width),
 each pixel gated by its own bounds, the first maximum winning.  The
 window dot products run on int8 operands with int32 sums, which is exact
 only for images on the integer grid [-128, 127] (centered uint8 values):
-the wrapper checks that and raises otherwise, on either device.
+on the card the kernel flags any value it reads off that grid and the
+wrapper raises; on the CPU the wrapper tests the images first.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from reconstruction_tpu_torch.config import NOMATCH
 from reconstruction_tpu_torch.ops import _build
 from reconstruction_tpu_torch.ops.ncc_sweep import (_dispatch, _require_cuda,
+                                                    check_off_grid,
                                                     sweep_shifts_plain)
 from reconstruction_tpu_torch.stereo.matching import (SweepResult, _centered,
                                                       sweep_moments)
@@ -87,8 +89,8 @@ def ncc_sweep_mxu(L, R, nmuL, invL, muR, invR, validR, active, lo, hi,
     absolute target-column bounds), plus pad_shift and an optional fixed
     shift range.  Returns (best score (H, W) f32, best target column
     (H, W) int32, -1 where nothing scored above -1)."""
-    _check_integer_grid(L, R)
     if _dispatch(L):
+        _check_integer_grid(L, R)
         return ncc_sweep_mxu_plain(L, R, nmuL, invL, muR, invR, validR,
                                    active, lo, hi, radius, pad_shift, s_min,
                                    s_max)
@@ -102,10 +104,12 @@ def ncc_sweep_mxu(L, R, nmuL, invL, muR, invR, validR, active, lo, hi,
     srange = shift_range(active, lo, hi, pad_shift, s_min, s_max)
     score = torch.empty((H, W), dtype=f32, device=dev)
     t = torch.empty((H, W), dtype=i32, device=dev)
+    off_grid = torch.zeros(1, dtype=i32, device=dev)
     _build.launch("rtt_ncc_sweep_mxu", *[a.data_ptr() for a in (
         L, R, nmuL, invL, muR, invR, validR, active, lo, hi, srange, score,
-        t)], H, W, C, radius)
+        t, off_grid)], H, W, C, radius)
     ncc_sweep_mxu.launches += 1
+    check_off_grid("ncc_sweep_mxu", off_grid)
     return score, t
 
 

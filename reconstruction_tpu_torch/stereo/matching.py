@@ -5,8 +5,9 @@ All three matchers reduce to one primitive, a sweep over uniform
 epipolar shifts with a running argmax (`ncc_sweep_match`), which runs as
 kernel K1 on the card (`ops/ncc_sweep.py`).  The reference's banded and
 tiled sweeps are bit-equal to its unbanded one; K1 gets their economy
-from its per-tile shift ranges, so the port has one sweep and no
-`band`, `tile` or `sblock` knobs.
+from sweeping each warp's own shift union, or only each pixel's own
+targets, so the port has one sweep and no `band`, `tile` or `sblock`
+knobs.
 """
 
 from __future__ import annotations

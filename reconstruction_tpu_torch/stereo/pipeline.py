@@ -188,14 +188,15 @@ def match_pair(
     K1: np.ndarray,
     Rt1: np.ndarray,
     *,
-    device,
+    device="cuda",
 ) -> PairResult:
     """Full per-pair pipeline (`MatchAllLayer`, `CStereoMatching.cpp:17-32`):
     rectify + remap at working resolution, mask erosion, pyramids,
     per-level matching, triangulation.
 
     Images and masks are original-resolution host arrays (BGR / [0,255]);
-    ``device`` is where the work runs ("cuda" for the kernels)."""
+    ``device`` is where the work runs: the card unless the caller asks
+    for "cpu" (the plain versions of the kernels)."""
     device = torch.device(device)
     origin_size = (image0.shape[1], image0.shape[0])
     working = cfg.finest_size

@@ -51,6 +51,12 @@ def test_no_source_file_imports_jax():
                         or "from reconstruction_tpu import" in s), (f, line)
 
 
+def test_match_pair_runs_on_the_card_by_default():
+    import inspect
+    from reconstruction_tpu_torch.stereo.pipeline import match_pair
+    assert inspect.signature(match_pair).parameters["device"].default == "cuda"
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     """Without CUDA the script exits non-zero and prints no result; alone
     in a directory (without the package) it fails too."""

@@ -32,22 +32,73 @@ def _scene(dev, H=200, W=160, d=12, seed=3):
     return L, R, valid, ncc_moments
 
 
-@pytest.mark.parametrize("radius,width", [(2, 63), (1, 5), (2, 300)])
-def test_k1_sweep_equals_plain(dev, radius, width):
+def _k1_bounds(kind, H, W, valid, dev, seed=0):
+    """(active, lo, hi) of one K1 case, and the modes some of its blocks
+    must take ("sweep", "candidate" or both; none for no active pixel)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = torch.int32
+    y = torch.arange(H, dtype=i32, device=dev)[:, None]
+    x = torch.arange(W, dtype=i32, device=dev)[None, :].expand(H, W)
+    active = valid.clone()
+    if kind == "shift64":                  # the bench cell: x .. x+63
+        lo, hi, modes = x, x + 63, {"sweep"}
+    elif kind == "negative":               # shifts -50 .. -10
+        lo, hi, modes = x - 50, x - 10, {"sweep"}
+    elif kind == "guided":                 # +-2 around a varying d, with holes
+        d = 12 + (x // 17 + y // 11) % 5 - 2
+        lo, hi = x + d - 2, x + d + 2
+        hole = (torch.rand((H, W), generator=g, device=dev) < 0.01) & (y < H // 3)
+        lo = torch.where(hole, x - 60, lo)
+        hi = torch.where(hole, x + 60, hi)
+        lo[H // 3], hi[H // 3] = 2, W - 3  # a row of holes with the whole span
+        modes = {"sweep", "candidate"}
+    elif kind == "rematch":                # sparse holes, wide bounds
+        active &= torch.rand((H, W), generator=g, device=dev) < 0.03
+        lo = x + torch.randint(-40, 1, (H, W), generator=g, device=dev, dtype=i32)
+        hi = lo + torch.randint(0, 81, (H, W), generator=g, device=dev, dtype=i32)
+        modes = {"candidate"}
+    else:                                  # no active pixel
+        active[:] = False
+        lo, hi, modes = x, x + 8, set()
+    return (active, lo.clamp(-5, W + 4).to(i32).contiguous(),
+            hi.clamp(-5, W + 4).to(i32).contiguous(), modes)
+
+
+@pytest.mark.parametrize("kind,H,W,C,radius,period", [
+    ("shift64", 64, 300, 3, 2, 0), ("shift64", 40, 63, 1, 1, 0),
+    ("shift64", 48, 300, 4, 3, 0), ("negative", 64, 300, 1, 2, 0),
+    ("guided", 200, 300, 3, 2, 0), ("guided", 48, 1280, 3, 2, 0),
+    ("guided", 64, 63, 1, 1, 0), ("rematch", 200, 300, 3, 2, 0),
+    ("rematch", 48, 1280, 1, 1, 0), ("none", 64, 300, 3, 2, 0),
+    ("shift64", 64, 300, 3, 2, 7), ("rematch", 200, 300, 3, 2, 7)])
+def test_k1_sweep_equals_plain(dev, kind, H, W, C, radius, period):
+    """K1 bit-equal to its plain sweep in both of its modes (the plan
+    mirrors the kernel's per-block choice); with ``period``, R repeats
+    along x, so targets ``period`` apart tie exactly and the first must
+    win."""
     from reconstruction_tpu_torch.ops import ncc_sweep as K
-    L, R, valid, moments = _scene(dev)
-    H, W = valid.shape
+    L, R, valid, moments = _scene(dev, H=H, W=W)
+    L, R = (torch.cat([t, t[..., :C - 3]], -1) if C > 3 else t[..., :C]
+            for t in (L, R))
+    if period:
+        R = R[:, :period].repeat(1, W // period + 1, 1)[:, :W]
+    L, R = L.contiguous(), R.contiguous()
+    active, lo, hi, modes = _k1_bounds(kind, H, W, valid, dev, seed=W + C)
+    plan = K.sweep_plan(active, lo, hi, radius)
+    taken = {m for m in ("sweep", "candidate") if plan[f"{m}_blocks"] > 0}
+    assert modes <= taken and (modes or not taken), plan
     mL, mR = moments(L, radius), moments(R, radius)
-    x = torch.arange(W, dtype=torch.int32, device=dev)[None, :].expand(H, W)
-    lo = torch.clamp(x - width // 2, min=0).contiguous()
-    hi = torch.clamp(x + width // 2, max=W - 1).contiguous()
     args = (L, R, (mL.n * mL.mean).contiguous(), mL.inv_norm, mR.mean,
-            mR.inv_norm, valid, valid, lo, hi, radius)
+            mR.inv_norm, valid, active, lo, hi, radius)
     n0 = K.ncc_sweep.launches
     sk, tk = K.ncc_sweep(*args)
     sp, tp = K.ncc_sweep_plain(*args)
     assert K.ncc_sweep.launches == n0 + 1
     assert torch.equal(sk, sp) and torch.equal(tk, tp)
+    if modes:
+        assert int((tk >= 0).sum()) > 0.5 * int(active.sum())
+    else:
+        assert bool((tk == -1).all() and (sk == -1).all())
 
 
 def test_k3_cost_volume_equals_plain(dev):
@@ -118,7 +169,20 @@ def test_k2_fused_sweeps_equal_plain(dev, n):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from reconstruction_tpu_torch.ops import ncc_sweep as K1
     from reconstruction_tpu_torch.ops import refine as K2
+    L, R, valid, moments = _scene(dev, H=40, W=64)
+    x = torch.arange(64, dtype=torch.int32, device=dev)[None, :].expand(40, 64)
+    m, mR = moments(L, 2), moments(R, 2)
+    args = (L, R, (m.n * m.mean).contiguous(), m.inv_norm, mR.mean,
+            mR.inv_norm, valid, valid, x.contiguous(), (x + 8).contiguous(), 2)
+    with pytest.raises(ValueError):   # off the integer grid
+        K1.ncc_sweep(L + 0.5, *args[1:])
+    with pytest.raises(ValueError):   # five channels
+        L5 = torch.cat([L, L[..., :2]], -1).contiguous()
+        K1.ncc_sweep(L5, torch.cat([R, R[..., :2]], -1).contiguous(), *args[2:])
+    with pytest.raises(ValueError):   # a radius the kernel is not built for
+        K1.ncc_sweep(*args[:-1], 4)
     d = torch.zeros((8, 8), device=dev)
     args = (torch.zeros((8, 4, 8), device=dev),
             torch.zeros((8, 8), dtype=torch.int32, device=dev), d,
