@@ -17,12 +17,16 @@ Phases (any failure raises; the exit code is then non-zero):
      holes; the blocks in each of its modes), K3 cost volume (slot-major,
      64-row bands and an edge-clamp case), K2 fused sweeps against as many
      plain single sweeps (30 across a window re-extraction, and 13), K5
-     tensor-core sweep (also against K1), all at H=1920, W=1280, C=3; K4
+     tensor-core sweep (also against K1; 64 shifts, and 256 in two
+     chunks, with K1's time and the pairs K5 evaluates beside it), all at
+     H=1920, W=1280, C=3; K4
      coupling at E=18, O=8, M=65,536, C=16.  Each kernel's device time
-     (torch.profiler) beside its bound (bytes or float32 operations of
-     this run's inputs at the H100's peak rates; K2's taps counted once a
-     launch) and its plain version's time; K1's, K3's and K5's whole
-     wrapper call, which reads back an integer-grid flag; K1 also on the
+     (torch.profiler) beside its bound (bytes, float32 operations, or for
+     K5 int8 tensor-core ones, of this run's inputs at the H100's peak
+     rates; K2's taps counted once a launch) and its plain version's time;
+     K1's, K3's and K5's whole wrapper call, which reads back an
+     integer-grid flag (K5's split into its launch, the host's time before
+     it and a read-back yardstick); K1 also on the
      guided and rematch cases, and timed by CUDA events around its launch
      (the profiler's stand-in where a session records no kernel); K3 beside a plain fill of a volume of its
      size; K4 beside scatter_add_ (the library yardstick)
@@ -83,21 +87,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# Published peaks of one H100 SXM: device memory and float32 outside the
-# tensor cores.
+# Published peaks of one H100 SXM: device memory, float32 outside the
+# tensor cores, and int8 on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take for the work: the larger of the
-    bytes that must move over the memory rate and the float32 operations
-    over the peak rate, and which of the two sets it."""
+def bound(nbytes: float, ops: float, int8_ops: float = 0.0) -> dict:
+    """The least time the card could take for the work: the largest of the
+    bytes that must move over the memory rate, the float32 operations over
+    their peak rate and the int8 tensor-core operations over theirs (the
+    two units run side by side), and which of bytes or operations sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, int8_ops / INT8_OPS_PER_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=nbytes, bound_ops=ops)
+                bound_bytes=nbytes, bound_ops=ops, bound_int8_ops=int8_ops)
 
 
 def useful_pairs(active, lo, hi) -> float:
@@ -118,6 +124,16 @@ def sweep_bound(L, active, lo, hi, r) -> dict:
     H, W, C = L.shape
     nbytes = H * W * (2 * C * 4 + 6 * 4 + 2 + 2 * 4)
     return bound(nbytes, useful_pairs(active, lo, hi) * (2 * C - 1 + 4 * r + 5))
+
+
+def mxu_bound(L, active, lo, hi, r) -> dict:
+    """K5's: the bytes of `sweep_bound`; per (active pixel, target) pair the
+    window's (2r+1)^2 C multiplies and adds on int8 tensor cores, and 5
+    float32 operations for the score and the compare."""
+    H, W, C = L.shape
+    pairs = useful_pairs(active, lo, hi)
+    return bound(H * W * (2 * C * 4 + 6 * 4 + 2 + 2 * 4), pairs * 5,
+                 pairs * 2 * (2 * r + 1) ** 2 * C)
 
 
 def k1_plan(K13, active, lo, hi, r) -> dict:
@@ -259,13 +275,38 @@ def launch_event_ms(fn, reps: int) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
 
 
-def kernel_ms(fn, name: str, reps: int, sessions: int = 4) -> float:
+def launch_host_ms(fn, reps: int) -> float:
+    """Host milliseconds from the start of a call of ``fn`` to its kernel
+    launch (`_build.launch`), the mean of ``reps`` calls."""
+    from reconstruction_tpu_torch.ops import _build
+    real, marks = _build.launch, []
+
+    def timed(entry, *args):
+        marks.append(time.perf_counter())
+        real(entry, *args)
+
+    fn()
+    _build.launch = timed
+    total = 0.0
+    try:
+        for _ in range(reps):
+            n, t0 = len(marks), time.perf_counter()
+            fn()
+            total += marks[n] - t0
+    finally:
+        _build.launch = real
+    return total / reps * 1e3
+
+
+def kernel_ms(fn, name: str, reps: int, sessions: int = 4, per_call: int = 1) -> float:
     """Milliseconds of device time per call of ``fn`` spent in kernels whose
-    name contains ``name``, from torch.profiler: the kernel alone, without
-    its wrapper's host work (K1's, K3's and K5's wrappers wait for an
-    integer-grid flag) and the host's gaps.  The profiler on the card's
-    machine drops events at the start of a session, so the session runs
-    2 * reps calls and the last reps launches it recorded are averaged.
+    name contains ``name``, from torch.profiler: the kernels alone, without
+    the wrapper's host work (K1's, K3's and K5's wrappers wait for an
+    integer-grid flag) and the host's gaps; ``per_call`` kernels of that
+    name a call (K5's prep and sweep) are summed.  The profiler on the
+    card's machine drops events at the start of a session, so the session
+    runs 2 * reps calls and the last reps calls' launches it recorded are
+    averaged.
     Now and then a session records none of the kernels (only the flag's
     copies): it is run again, and after ``sessions`` such sessions the
     time comes from `launch_event_ms`, which the log says."""
@@ -280,9 +321,11 @@ def kernel_ms(fn, name: str, reps: int, sessions: int = 4) -> float:
     for _ in range(sessions):
         dev_events = device_events(run)
         hits = sorted((e for e in dev_events if name in e.name),
-                      key=lambda e: e.time_range.start)[-reps:]
-        if len(hits) >= max(1, reps // 2):
-            return sum(e.time_range.elapsed_us() for e in hits) / 1e3 / len(hits)
+                      key=lambda e: e.time_range.start)[-reps * per_call:]
+        calls = len(hits) // per_call
+        if calls >= max(1, reps // 2):
+            hits = hits[len(hits) - calls * per_call:]
+            return sum(e.time_range.elapsed_us() for e in hits) / 1e3 / calls
         seen = sorted({e.name[:60] for e in dev_events})
         log(f"  the profiler saw {len(hits)} kernels named like {name} in "
             f"{2 * reps} calls (device events: {seen}); profiling again")
@@ -482,29 +525,79 @@ def phase_kernels(card: str) -> dict:
     report(f"K2 refine_sweeps_fused, one launch of {T} sweeps {H}x{W} "
            f"({ms / T:.4f} ms a sweep)", results["refine_sweeps_fused"], card)
 
-    # K5: the tensor-core sweep on K1's 64-shift case, against its plain
-    # version and against K1 (one 128-shift chunk; the bounds gate the rest).
-    args = margs + (valid, valid, lo, hi, r)
-    s5, t5 = K5.ncc_sweep_mxu(*args)
-    sp, tp = K5.ncc_sweep_mxu_plain(*args)
-    s1, t1 = K13.ncc_sweep(*args)
-    torch.cuda.synchronize()
-    equal = torch.equal(s5, sp) and torch.equal(t5, tp)
-    equal_k1 = torch.equal(s5, s1) and torch.equal(t5, t1)
-    err = max(float((s5 - sp).abs().max()), float((t5 - tp).abs().max()))
-    log(f"K5 ncc_sweep_mxu: bit-equal to plain={equal} to K1={equal_k1} "
-        f"max_abs_err={err}")
-    if not (equal and equal_k1):
-        raise AssertionError("K5 differs from its plain version or from K1")
-    ms = kernel_ms(lambda: K5.ncc_sweep_mxu(*args), "ncc_sweep_mxu_kernel", 10)
-    call_ms = cuda_ms(lambda: K5.ncc_sweep_mxu(*args), 10)
-    ms_k1 = kernel_ms(lambda: K13.ncc_sweep(*args), "ncc_sweep_kernel", 10)
-    plain_ms = cuda_ms(lambda: K5.ncc_sweep_mxu_plain(*args), 2)
-    results["ncc_sweep_mxu"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    k1_ms=ms_k1, call_ms=call_ms, library_ms=None,
-                                    **sweep_bound(L, valid, lo, hi, r))
-    report(f"K5 ncc_sweep_mxu 64 shifts {H}x{W} (K1 {ms_k1:.4f} ms)",
-           results["ncc_sweep_mxu"], card)
+    # K5: the tensor-core sweep against its plain version and against K1,
+    # on K1's 64-shift case (one 128-shift chunk; the bounds gate the rest)
+    # and on x-128..x+127 at pad_shift 128 (two full chunks, the TPU
+    # kernel's whole range).  Its kernel time sums all its launches a call.
+    per_call = getattr(K5, "KERNELS_PER_CALL", 1)
+    k5_cases = (("64 shifts", lo, hi),
+                ("256 shifts", (x - 128).contiguous(), (x + 127).contiguous()))
+    for label, a, b in k5_cases:
+        args = margs + (valid, valid, a, b, r)
+        s5, t5 = K5.ncc_sweep_mxu(*args, pad_shift=128)
+        sp, tp = K5.ncc_sweep_mxu_plain(*args, pad_shift=128)
+        s1, t1 = K13.ncc_sweep(*args)
+        torch.cuda.synchronize()
+        equal = torch.equal(s5, sp) and torch.equal(t5, tp)
+        equal_k1 = torch.equal(s5, s1) and torch.equal(t5, t1)
+        err = max(float((s5 - sp).abs().max()), float((t5 - tp).abs().max()))
+        del sp, tp, s1, t1
+        useful = useful_pairs(valid, a, b)
+        plan = (K5.mma_plan(valid, a, b, r, 128) if hasattr(K5, "mma_plan")
+                else dict(evaluated=-1))
+        evaluated = plan["evaluated"]
+        log(f"K5 ncc_sweep_mxu {label}: bit-equal to plain={equal} to K1={equal_k1} "
+            f"max_abs_err={err} useful pairs {useful:.0f}, evaluated {evaluated} "
+            f"({evaluated / useful:.3f}x); words fetched per pixel: "
+            f"{ {k: round(v, 3) for k, v in plan.items() if k.endswith('fetches')} }")
+        if not (equal and equal_k1):
+            raise AssertionError(f"K5 ({label}) differs from its plain version or from K1")
+        ms = kernel_ms(lambda: K5.ncc_sweep_mxu(*args), "ncc_sweep_mxu", 10,
+                       per_call=per_call)
+        # The prep pass alone, where the kernel has one.
+        prep_ms = (kernel_ms(lambda: K5.ncc_sweep_mxu(*args), "ncc_sweep_mxu_prep", 10)
+                   if per_call > 1 else None)
+        call_ms = cuda_ms(lambda: K5.ncc_sweep_mxu(*args), 10)
+        # The call's time above its kernels: CUDA events around the launch
+        # (the state's memset and both kernels, no host gap), the host's
+        # time from a call's start to its launch (the card idles then), and
+        # K1's call, whose wrapper also reads a flag back.
+        event_ms = launch_event_ms(lambda: K5.ncc_sweep_mxu(*args), 10)
+        host_ms = launch_host_ms(lambda: K5.ncc_sweep_mxu(*args), 10)
+        ms_k1 = kernel_ms(lambda: K13.ncc_sweep(*args), "ncc_sweep_kernel", 10)
+        call_k1 = cuda_ms(lambda: K13.ncc_sweep(*args), 10)
+        plain_ms = cuda_ms(lambda: K5.ncc_sweep_mxu_plain(*args), 1)
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, k1_ms=ms_k1,
+                   call_ms=call_ms, event_ms=event_ms, host_ms=host_ms,
+                   k1_call_ms=call_k1, library_ms=None, useful_pairs=useful,
+                   evaluated_pairs=evaluated, kernels_per_call=per_call, prep_ms=prep_ms,
+                   fetches={k: v for k, v in plan.items() if k.endswith("fetches")},
+                   **mxu_bound(L, valid, a, b, r))
+        report(f"K5 ncc_sweep_mxu {label} {H}x{W} (K1 {ms_k1:.4f} ms"
+               + (f", prep pass {prep_ms:.4f} ms" if prep_ms is not None else "") + ")",
+               res, card)
+        log(f"K5 {label} call: {call_ms:.4f} ms = kernels {ms:.4f} (events around "
+            f"the launch {event_ms:.4f}) + {call_ms - ms:.4f}, of which the host's "
+            f"{host_ms:.4f} before the launch; K1 call {call_k1:.4f} = kernel "
+            f"{ms_k1:.4f} + {call_k1 - ms_k1:.4f}; bound's operations: int8 "
+            f"{res['bound_int8_ops'] / INT8_OPS_PER_S * 1e3:.4f} ms, float32 "
+            f"{res['bound_ops'] / F32_OPS_PER_S * 1e3:.4f} ms ({card})")
+        if label == "64 shifts":
+            results["ncc_sweep_mxu"] = res
+        else:
+            results["ncc_sweep_mxu"][label] = res
+    # The read-back's cost against the wait before it: a spin kernel as long
+    # as K5's kernels in each case, then a 4-byte read back, against the
+    # spin alone (back to back).
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    unit = cuda_ms(lambda: torch.cuda._sleep(1 << 20), 5) / (1 << 20)
+    for res in (results["ncc_sweep_mxu"], results["ncc_sweep_mxu"]["256 shifts"]):
+        cycles = int(res["ms"] / unit)
+        spin = cuda_ms(lambda: torch.cuda._sleep(cycles), 10)
+        spin_read = cuda_ms(lambda: (torch.cuda._sleep(cycles), flag.item()), 10)
+        res["readback_ms"] = spin_read - spin
+        log(f"read-back yardstick: spin {spin:.4f} ms, then a read back "
+            f"{spin_read:.4f} ms: +{spin_read - spin:.4f} ms ({card})")
 
     # K4: the BA coupling contraction at the bench shape, some cams -1.
     E, O, M, C = 18, 8, 1 << 16, 16
@@ -540,7 +633,7 @@ def phase_kernels(card: str) -> dict:
 # Substrings of the port's kernel names, as the profiler reports them.
 PORT_KERNELS = {"ncc_sweep": "ncc_sweep_kernel", "cost_volume": "cost_volume_kernel",
                 "refine": "refine_sweep", "ba_coupling": "ba_coupling_kernel",
-                "ncc_sweep_mxu": "ncc_sweep_mxu_kernel"}
+                "ncc_sweep_mxu": "ncc_sweep_mxu"}
 
 
 def profile_run(run, label: str, card: str, top: int = 12) -> dict:

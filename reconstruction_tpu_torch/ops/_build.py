@@ -40,6 +40,7 @@ build_log: str = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 # C entry points: name -> argument types (pointers and the stream are void*).
 _SIGNATURES = {
@@ -47,7 +48,8 @@ _SIGNATURES = {
     "rtt_cost_volume": [_P] * 11 + [_I] * 5 + [_P],
     "rtt_refine_sweeps": [_P] * 6 + [_F] + [_I] * 4 + [_P],
     "rtt_ba_coupling": [_P] * 3 + [_I] * 4 + [_P],
-    "rtt_ncc_sweep_mxu": [_P] * 14 + [_I] * 4 + [_P],
+    "rtt_ncc_sweep_mxu": [_P] * 13 + [_I] * 8 + [_LL, _P],
+    "rtt_ncc_sweep_mxu_layout": [_I, _I, _P],
 }
 
 

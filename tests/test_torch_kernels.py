@@ -231,34 +231,54 @@ def test_k4_ba_coupling_equals_plain(dev, O, M):
         K4.ba_coupling(He.double(), cam, C)
 
 
-@pytest.mark.parametrize("C,radius,lo0,wid,ps", [(3, 2, -20, 40, 128),
-                                                 (1, 2, -5, 10, 128),
-                                                 (3, 1, -150, 300, 256),
-                                                 (1, 2, -40, 80, 16)])
-def test_k5_mxu_sweep_equals_plain_and_k1(dev, C, radius, lo0, wid, ps):
+@pytest.mark.parametrize("kind,C,radius,lo0,wid,ps,H,W", [
+    ("random", 3, 2, -20, 40, 128, 200, 160),
+    ("random", 1, 2, -5, 10, 128, 200, 160),
+    ("random", 3, 1, -150, 300, 256, 200, 160),
+    ("random", 1, 2, -40, 80, 16, 200, 160),
+    ("full", 3, 2, -128, 255, 128, 64, 300),    # two full chunks at +-128
+    ("full", 1, 2, -300, 600, 512, 40, 700),    # the block's targets staged twice
+    ("none", 3, 2, -20, 40, 128, 64, 300),      # no active pixel
+    ("random", 3, 2, -20, 40, 128, 203, 301),   # H, W off the block's 4 x 64
+    ("random", 4, 3, -30, 60, 128, 61, 150),    # r = 3, four channels
+    ("fixed", 3, 2, -20, 40, 128, 64, 300)])    # a given shift range
+def test_k5_mxu_sweep_equals_plain_and_k1(dev, kind, C, radius, lo0, wid, ps, H, W):
+    """K5 bit-equal to its plain version, and to K1 wherever its shift range
+    is not clipped; one launch counted a call; off-grid images raise."""
     from reconstruction_tpu_torch.ops import ncc_sweep as K1
     from reconstruction_tpu_torch.ops import ncc_sweep_mxu as K5
-    L, R, valid, moments = _scene(dev)
-    L, R = L[..., :C].contiguous(), R[..., :C].contiguous()
-    H, W = valid.shape
+    L, R, valid, moments = _scene(dev, H=H, W=W)
+    L, R = (torch.cat([t, t[..., :C - 3]], -1) if C > 3 else t[..., :C]
+            for t in (L, R))
+    L, R = L.contiguous(), R.contiguous()
     g = torch.Generator(device=dev).manual_seed(C * 100 + wid)
-    x = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-    lo = torch.clamp(x + torch.randint(lo0, 1, (H, W), generator=g, device=dev,
-                                       dtype=torch.int32), 0, W - 1)
-    hi = torch.clamp(lo + torch.randint(0, wid + 1, (H, W), generator=g,
-                                        device=dev, dtype=torch.int32), 0, W - 1)
+    x = torch.arange(W, dtype=torch.int32, device=dev)[None, :].expand(H, W)
+    if kind == "full":
+        lo, hi = x + lo0, x + lo0 + wid
+    else:
+        lo = torch.clamp(x + torch.randint(lo0, 1, (H, W), generator=g, device=dev,
+                                           dtype=torch.int32), 0, W - 1)
+        hi = torch.clamp(lo + torch.randint(0, wid + 1, (H, W), generator=g,
+                                            device=dev, dtype=torch.int32), 0, W - 1)
     active = valid & (torch.rand((H, W), generator=g, device=dev) > 0.3)
+    if kind == "none":
+        active[:] = False
+    rng = dict(s_min=-7, s_max=33) if kind == "fixed" else {}
     mL, mR = moments(L, radius), moments(R, radius)
     args = (L, R, (mL.n * mL.mean).contiguous(), mL.inv_norm, mR.mean,
             mR.inv_norm, valid, active, lo.contiguous(), hi.contiguous(), radius)
     n0 = K5.ncc_sweep_mxu.launches
-    sk, tk = K5.ncc_sweep_mxu(*args, pad_shift=ps)
+    sk, tk = K5.ncc_sweep_mxu(*args, pad_shift=ps, **rng)
     assert K5.ncc_sweep_mxu.launches == n0 + 1
-    sp, tp = K5.ncc_sweep_mxu_plain(*args, pad_shift=ps)
+    sp, tp = K5.ncc_sweep_mxu_plain(*args, pad_shift=ps, **rng)
     assert torch.equal(sk, sp) and torch.equal(tk, tp)
+    if kind == "none":
+        assert bool((tk == -1).all() and (sk == -1).all())
+    else:
+        assert int((tk >= 0).sum()) > 0.3 * int(active.sum())
     s_lo = int(torch.where(active, lo - x, 1 << 20).min())
     s_hi = int(torch.where(active, hi - x, -(1 << 20)).max())
-    if -ps <= s_lo <= ps - 1 and s_hi <= ps:   # nothing clipped: K1's result
+    if not rng and -ps <= s_lo <= ps - 1 and s_hi <= ps:   # nothing clipped
         s1, t1 = K1.ncc_sweep(*args)
         assert torch.equal(sk, s1) and torch.equal(tk, t1)
     with pytest.raises(ValueError):
