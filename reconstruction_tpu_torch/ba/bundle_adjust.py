@@ -407,8 +407,16 @@ def bundle_adjust(
     the problem's device.
 
     Returns (poses (C, 6), points (M, 3), accepted costs (float32, one
-    per iteration plus the initial one))."""
+    per iteration plus the initial one)).  Raises ValueError when a camera
+    id lies outside [0, C): the reference's one-hot gave such an id zero
+    parameters (a NaN cost), an index gather would wrap it to another
+    camera.  The check reads back once a call, not once a step."""
     C = problem.K.shape[0]
+    cam = problem.obs_cam
+    if bool(((cam < 0) | (cam >= C)).any()):
+        lo, hi = int(cam.min()), int(cam.max())
+        raise ValueError(f"obs_cam holds camera ids in [{lo}, {hi}]; "
+                         f"they must lie in [0, {C})")
     poses = torch.zeros((C, 6), dtype=problem.points0.dtype,
                         device=problem.points0.device)
     points = problem.points0

@@ -1,10 +1,11 @@
 """Configuration of the port (counterpart of `reconstruction_tpu/config.py`).
 
 The same field names, defaults and presets as the reference's, for the
-parts the port runs: the pyramid keys and `StereoParams`.  The pair
-table and the cloud, surface, bundle-adjustment and layout parameters
-come with the stages that read them.  The port imports nothing of the
-JAX package, so it stands alone on a machine that has no JAX.
+parts the port runs: the run keys, the pyramid keys, the pair table,
+`StereoParams`, `CloudParams` and `SurfaceParams`.  The bundle-adjustment
+and layout parameters come with the stages that read them.  The port
+imports nothing of the JAX package, so it stands alone on a machine that
+has no JAX.
 """
 
 from __future__ import annotations
@@ -55,15 +56,92 @@ class StereoParams:
 
 
 @dataclass(frozen=True)
+class CloudParams:
+    """Point-cloud optimization parameters (`CReconstruction.cpp:18`,
+    `CCloudOptimization.cpp:40-56`)."""
+
+    # Statistical outlier removal: k nearest neighbors and std multiplier.
+    sor_mean_k: int = 100
+    sor_std_thresh: float = 1.0
+    # Radius outlier removal (commented out in the reference,
+    # `CCloudOptimization.cpp:90-96`; an optional stage).
+    outrem_neighbors: int = 50
+    outrem_radius: float = 2.0
+    use_radius_outlier_removal: bool = False
+    # Normal-estimation / MLS search radius (`CCloudOptimization.cpp:106,358`);
+    # the MLS fit is order 1 (a plane), as the reference hard-codes.
+    mls_radius: float = 2.5
+    # Cross-view dedup enabled (`isdelete`, `CReconstruction.cpp:18` false).
+    dedup: bool = False
+    # Cloud-stage backend: "torch" (voxel-grid reduces on the pair's
+    # device), "native" (C++/OpenMP exact k-NN on the host) or "auto",
+    # which is "torch" (cloud/backend.py).
+    backend: str = "auto"
+    # Read by the reference's fixed-capacity buffers; kept for equal presets.
+    max_points_per_pair: int = 1 << 21
+    max_neighbors: int = 128
+
+
+@dataclass(frozen=True)
+class SurfaceParams:
+    """Surfacing parameters: the dense-grid Poisson solve, the trim and the
+    mesh cleanup that replace the reference's external tools
+    (`Demo/mesh.bat:1-3`, `Demo/meshlab.bat:1-2`)."""
+
+    # Per-pair and global Poisson octree depths of the external tools
+    # (`Demo/mesh.bat:1`, `Demo/meshlab/script1.mlx`); not read by the
+    # dense solver.
+    pair_depth: int = 9
+    global_depth: int = 10
+    # Dense-grid resolution of the Poisson solve.
+    grid_resolution: int = 256
+    # Screened-Poisson point weight (`Demo/mesh.bat:1`, --pointWeight 0).
+    point_weight: float = 0.0
+    # Splat support radius in voxels (not read: the splat is trilinear).
+    splat_radius: float = 1.5
+    # Fixed-point iterations of the screened solve; the smoothing counts
+    # belong to the reference's multigrid V-cycle.
+    mg_cycles: int = 8
+    mg_pre_smooth: int = 2
+    mg_post_smooth: int = 2
+    # Density trim quantile (SurfaceTrimmer --trim 7, as a density quantile).
+    trim_quantile: float = 0.05
+    # Island removal threshold (`script2.mlx` MinComponentDiag, fraction of
+    # the bounding-box diagonal).
+    min_component_diag_frac: float = 0.10
+    # Laplacian smoothing steps (`script1.mlx`, stepSmoothNum 5).
+    laplacian_steps: int = 5
+    laplacian_cotangent: bool = True
+    # Close holes up to this boundary-edge count (`script2.mlx`, 30).
+    close_holes_max_edges: int = 30
+    # Trim smoothing iterations (SurfaceTrimmer --smooth 100).
+    trim_smooth_iters: int = 100
+    # Per-pair Poisson grid; 0 = grid_resolution.
+    pair_grid_resolution: int = 0
+
+
+@dataclass(frozen=True)
 class ReconstructionConfig:
     """Top-level run configuration; field names mirror the reference's
     YAML keys (`reconstruction/CManageData.cpp:26-43`)."""
 
+    filepath: str = ""
+    outfilename: str = "out.ply"
+    isoutput: bool = False
     # Pyramid levels (`PyrmNum`).
     pyramid_levels: int = 4
     # Coarsest-level size (`LowestLevelWidth/Height`): (width, height).
     lowest_level_size: Tuple[int, int] = (160, 240)
+    # Stereo pair table: rows of (left camID, right camID)
+    # (`BatchProcess/main.cpp:30-35`).
+    cam_pairs: Tuple[Tuple[int, int], ...] = ((0, 1), (2, 3), (4, 5), (7, 6))
     stereo: StereoParams = field(default_factory=StereoParams)
+    cloud: CloudParams = field(default_factory=CloudParams)
+    surface: SurfaceParams = field(default_factory=SurfaceParams)
+
+    @property
+    def num_pairs(self) -> int:
+        return len(self.cam_pairs)
 
     @property
     def finest_size(self) -> Tuple[int, int]:
@@ -85,13 +163,29 @@ class ReconstructionConfig:
 
 
 def preset(name: str) -> ReconstructionConfig:
-    """The reference's named presets, as far as the port reads them
-    ("ETH" differs from "myself" only in cloud parameters)."""
-    if name in ("myself", "ETH"):
+    """The reference's named presets: "myself" (the face-rig wiring), "ETH"
+    (its commented variant: SOR 100/0.5, outrem 50/2, mls_radius 0.5),
+    "tiny" (the small synthetic preset of the tests; cloud radii in the
+    synthetic scene's world units) and "dome32"."""
+    if name == "myself":
         return ReconstructionConfig()
+    if name == "ETH":
+        return ReconstructionConfig(
+            cloud=CloudParams(sor_mean_k=100, sor_std_thresh=0.5,
+                              outrem_neighbors=50, outrem_radius=2.0,
+                              mls_radius=0.5))
     if name == "tiny":
-        return ReconstructionConfig(pyramid_levels=2, lowest_level_size=(64, 48))
+        return ReconstructionConfig(
+            pyramid_levels=2,
+            lowest_level_size=(64, 48),
+            cam_pairs=((0, 1),),
+            cloud=CloudParams(sor_mean_k=30, mls_radius=0.08,
+                              max_points_per_pair=1 << 14),
+            surface=SurfaceParams(grid_resolution=64, mg_cycles=4))
     if name == "dome32":
-        return ReconstructionConfig(pyramid_levels=5, lowest_level_size=(240, 135))
+        return ReconstructionConfig(
+            pyramid_levels=5,
+            lowest_level_size=(240, 135),
+            cam_pairs=tuple((2 * i, 2 * i + 1) for i in range(16)))
     raise KeyError(
         f"unknown preset {name!r}; available: myself, ETH, tiny, dome32")

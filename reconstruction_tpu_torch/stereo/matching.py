@@ -44,11 +44,14 @@ def ncc_moments(img: torch.Tensor, radius: int) -> NccMoments:
     s2 = _box_sum((img * img).sum(-1), radius)
     mean = mul_recip(s1, n)
     var = torch.clamp_min(fma32(-s1, mean, s2), 0.0)
-    # XLA turns 1/sqrt into rsqrt; torch.rsqrt rounds the same way on the
-    # CPU.  On CUDA it is the card's rsqrtf: the kernels take the moments
-    # as inputs, so kernel and plain version still agree bit for bit.
+    # XLA turns 1/sqrt into rsqrt, which on the reference's inputs equals
+    # float32 1/sqrt(var); torch.rsqrt rounds the same way on the CPU.  On
+    # CUDA torch.rsqrt is the card's approximate rsqrtf, so the card takes
+    # an IEEE sqrt and an IEEE divide instead.
     one = torch.ones_like(var)
-    inv = torch.where(var == 0, one, torch.rsqrt(torch.where(var == 0, one, var)))
+    safe = torch.where(var == 0, one, var)
+    inv_sqrt = 1.0 / torch.sqrt(safe) if safe.is_cuda else torch.rsqrt(safe)
+    inv = torch.where(var == 0, one, inv_sqrt)
     return NccMoments(mean=mean, inv_norm=inv, n=n)
 
 

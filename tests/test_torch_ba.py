@@ -223,6 +223,21 @@ def test_bundle_adjust_free_cameras_recovers_geometry():
                                                   to_np(poses[2])), atol=1e-12)
 
 
+@pytest.mark.parametrize("bad", [-1, 4])
+def test_bundle_adjust_rejects_camera_ids_out_of_range(bad):
+    """A camera id outside [0, C) raises before the first step: the
+    reference's one-hot gave it zero parameters (a NaN cost), an index
+    gather would wrap -1 to camera C-1."""
+    prob, _, _ = _make_ba_problem(np.random.default_rng(0))
+    tprob = _port_problem(prob)
+    assert tprob.K.shape[0] == 4
+    cam = tprob.obs_cam.clone()
+    cam[3, 1] = bad
+    with pytest.raises(ValueError, match=r"\[0, 4\)"):
+        tb.bundle_adjust(tprob._replace(obs_cam=cam), iterations=2)
+    tb.bundle_adjust(tprob, iterations=1)
+
+
 # --------------------------------------------------------------------------
 # features, descriptors, tracks
 # --------------------------------------------------------------------------

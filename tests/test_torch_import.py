@@ -31,6 +31,19 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.stereo.ncc\n"
         "import reconstruction_tpu_torch.ops._build\n"
         "import reconstruction_tpu_torch.config\n"
+        "import reconstruction_tpu_torch.pipeline.reconstruct\n"
+        "import reconstruction_tpu_torch.pipeline.scan_mesh\n"
+        "import reconstruction_tpu_torch.cloud.dedup\n"
+        "import reconstruction_tpu_torch.cloud.filters\n"
+        "import reconstruction_tpu_torch.cloud.mls\n"
+        "import reconstruction_tpu_torch.cloud.normals\n"
+        "import reconstruction_tpu_torch.surface.marching\n"
+        "import reconstruction_tpu_torch.surface.mesh\n"
+        "import reconstruction_tpu_torch.surface.poisson\n"
+        "import reconstruction_tpu_torch.surface.texture\n"
+        "import reconstruction_tpu_torch.io.ply\n"
+        "import reconstruction_tpu_torch.io.images\n"
+        "import reconstruction_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'reconstruction_tpu'))\n"
         "assert not bad, bad\n"
@@ -55,6 +68,12 @@ def test_match_pair_runs_on_the_card_by_default():
     import inspect
     from reconstruction_tpu_torch.stereo.pipeline import match_pair
     assert inspect.signature(match_pair).parameters["device"].default == "cuda"
+
+
+def test_reconstruct_runs_on_the_card_by_default():
+    import inspect
+    from reconstruction_tpu_torch.pipeline.reconstruct import reconstruct
+    assert inspect.signature(reconstruct).parameters["device"].default == "cuda"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -283,3 +283,18 @@ def test_k5_mxu_sweep_equals_plain_and_k1(dev, kind, C, radius, lo0, wid, ps, H,
         assert torch.equal(sk, s1) and torch.equal(tk, t1)
     with pytest.raises(ValueError):
         K5.ncc_sweep_mxu(L + 0.5, *args[1:], pad_shift=ps)
+
+
+def test_ncc_moments_card_equal_cpu(dev):
+    """The card's NCC window moments equal the CPU's bit for bit (the
+    inverse norm is an IEEE sqrt and divide on the card, not rsqrtf), on
+    seeded images at 1280x1920x3 and on a flat patch (zero variance)."""
+    from reconstruction_tpu_torch.stereo.matching import _centered, ncc_moments
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (1920, 1280, 3)).astype(np.float32)
+    img[100:140, 200:260] = 77.0
+    for radius in (1, 2, 3):
+        cpu = ncc_moments(_centered(torch.from_numpy(img)), radius)
+        gpu = ncc_moments(_centered(torch.from_numpy(img).to(dev)), radius)
+        assert torch.equal(cpu.mean, gpu.mean.cpu())
+        assert torch.equal(cpu.inv_norm, gpu.inv_norm.cpu())

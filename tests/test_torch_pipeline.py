@@ -138,8 +138,11 @@ def test_config_presets_match_reference(name):
     for everything the slice reads."""
     import dataclasses
     ref, got = preset(name), tconfig.preset(name)
-    assert dataclasses.asdict(got.stereo) == dataclasses.asdict(ref.stereo)
-    for key in ("pyramid_levels", "lowest_level_size", "finest_size"):
+    for part in ("stereo", "cloud", "surface"):
+        assert dataclasses.asdict(getattr(got, part)) == dataclasses.asdict(
+            getattr(ref, part)), part
+    for key in ("pyramid_levels", "lowest_level_size", "finest_size", "cam_pairs",
+                "num_pairs", "filepath", "outfilename", "isoutput"):
         assert getattr(got, key) == getattr(ref, key), key
     for level in range(ref.pyramid_levels):
         assert got.level_size(level) == ref.level_size(level)
