@@ -43,7 +43,20 @@ Phases (any failure raises; the exit code is then non-zero):
      ms per ba_step
   7. Harris, colour descriptors, tracks and structure-only BA on three
      rendered 1280x1920 views (surface error), and at 160x120 card vs CPU
-  8. the kernels line, the card line, and last {"ok": true, "device": {...}}
+  8. reconstruct at the bench configuration, twice (phase_reconstruct)
+  9. the CLI on the reference's on-disk format at that configuration: a
+     subprocess `python3 -m reconstruction_tpu_torch config.yml` against an
+     in-process reconstruct of the same config, PLY bytes equal
+ 10. reconstruct_video: 4 frames of 6 views at 1280x1920, the rig orbiting
+     1.5 degrees a frame, closures every 3 frames; the pose estimate card
+     against CPU at 320x240
+ 11. the other modes: segment_frame at 1280x1920 and card against CPU,
+     depth_to_points card against CPU, run_batch over a 10-camera take,
+     cut_image_dir
+ 12. the kernels line, the card line, and last {"ok": true, "device": {...}}
+
+Named phases run alone (no kernels line, no result): kernels, slice, small,
+mxu, ba, front, reconstruct, cli, video, satellites.
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -87,11 +100,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# Published peaks of one H100 SXM: device memory, float32 outside the
-# tensor cores, and int8 on the tensor cores (dense).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-INT8_OPS_PER_S = 1979e12
+def peaks() -> dict:
+    """The card's published peaks (`utils/profiling.CHIP_PEAKS`): device
+    memory bytes/s, float32 outside the tensor cores, int8 on them."""
+    from reconstruction_tpu_torch.utils.profiling import CHIP_PEAKS
+    return CHIP_PEAKS["h100"]
 
 
 def bound(nbytes: float, ops: float, int8_ops: float = 0.0) -> dict:
@@ -99,8 +112,9 @@ def bound(nbytes: float, ops: float, int8_ops: float = 0.0) -> dict:
     bytes that must move over the memory rate, the float32 operations over
     their peak rate and the int8 tensor-core operations over theirs (the
     two units run side by side), and which of bytes or operations sets it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / F32_OPS_PER_S, int8_ops / INT8_OPS_PER_S) * 1e3
+    p = peaks()
+    t_bytes = nbytes / p["hbm_gbps"] * 1e3
+    t_ops = max(ops / p["flops_f32"], int8_ops / p["int8_ops"]) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=nbytes, bound_ops=ops, bound_int8_ops=int8_ops)
@@ -580,8 +594,8 @@ def phase_kernels(card: str) -> dict:
             f"the launch {event_ms:.4f}) + {call_ms - ms:.4f}, of which the host's "
             f"{host_ms:.4f} before the launch; K1 call {call_k1:.4f} = kernel "
             f"{ms_k1:.4f} + {call_k1 - ms_k1:.4f}; bound's operations: int8 "
-            f"{res['bound_int8_ops'] / INT8_OPS_PER_S * 1e3:.4f} ms, float32 "
-            f"{res['bound_ops'] / F32_OPS_PER_S * 1e3:.4f} ms ({card})")
+            f"{res['bound_int8_ops'] / peaks()['int8_ops'] * 1e3:.4f} ms, float32 "
+            f"{res['bound_ops'] / peaks()['flops_f32'] * 1e3:.4f} ms ({card})")
         if label == "64 shifts":
             results["ncc_sweep_mxu"] = res
         else:
@@ -1088,9 +1102,49 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+def counted(fn):
+    """(result, seconds, launches by kernel) of ``fn()``: the pair path's
+    kernel counts (K1, K3, K2) set to 0 just before it and read just after."""
+    from reconstruction_tpu_torch.ops import ncc_sweep as K13
+    from reconstruction_tpu_torch.ops import refine as K2
+    wrappers = (("ncc_sweep", K13.ncc_sweep), ("cost_volume", K13.cost_volume),
+                ("refine_sweeps_fused", K2.refine_sweeps_fused))
+    for _, w in wrappers:
+        w.launches = 0
+    out, seconds = _timed(fn)
+    return out, seconds, {name: w.launches for name, w in wrappers}
+
+
 # The JAX package's full bench on this configuration (BENCH_r05.json "mesh").
 REF_MESH_VERTS = 282_709
 RMSE_LIMIT = 0.0091                 # 1.2x its surface RMSE of 0.00755
+BENCH_PAIRS = ((0, 1), (2, 3), (4, 5), (7, 6))
+
+
+def bench_config():
+    """The JAX package's bench configuration (`bench.py:69-139`): the myself
+    preset, mls_radius 0.02, a 256^3 Poisson grid, no dedup."""
+    import dataclasses
+    from reconstruction_tpu_torch.config import preset
+    base = preset("myself")
+    return base.replace(cam_pairs=BENCH_PAIRS,
+                        cloud=dataclasses.replace(base.cloud, mls_radius=0.02, dedup=False),
+                        surface=dataclasses.replace(base.surface, grid_resolution=256))
+
+
+def quantized(imgs, masks):
+    """Views as the bench stores them: 8-bit images, masks at 0/255."""
+    return ([np.clip(im, 0, 255).astype(np.uint8).astype(np.float32) for im in imgs],
+            [np.where(m > 127, 255.0, 0.0).astype(np.float32) for m in masks])
+
+
+def bench_scene(num_cameras: int, span_deg: float, size):
+    """Cameras, 8-bit views and 0/255 masks of the rendered scene, rendered
+    on the card."""
+    from reconstruction_tpu_torch.utils.synthetic import make_stereo_scene
+    cams, imgs, masks = make_stereo_scene(image_size=size, span_deg=span_deg,
+                                          num_cameras=num_cameras, device="cuda")
+    return (cams,) + quantized(imgs, masks)
 
 
 def phase_reconstruct(card: str) -> dict:
@@ -1102,27 +1156,16 @@ def phase_reconstruct(card: str) -> dict:
     surface and against the reference's vertex count, runs identical.
     Then SOR and normals on one pair's raw cloud and MLS on the fused
     cloud, on the device path and on the native host path."""
-    import dataclasses
     import torch
     from reconstruction_tpu_torch import native
     from reconstruction_tpu_torch.cloud.filters import sor_filter
     from reconstruction_tpu_torch.cloud.mls import mls_smooth
     from reconstruction_tpu_torch.cloud.normals import estimate_normals
-    from reconstruction_tpu_torch.config import preset
-    from reconstruction_tpu_torch.ops import ncc_sweep as K13
-    from reconstruction_tpu_torch.ops import refine as K2
     from reconstruction_tpu_torch.pipeline.reconstruct import PairInput, reconstruct
-    from reconstruction_tpu_torch.utils.synthetic import (make_stereo_scene,
-                                                          point_to_surface_rmse)
+    from reconstruction_tpu_torch.utils.synthetic import point_to_surface_rmse
 
-    base = preset("myself")
-    cfg = base.replace(cam_pairs=((0, 1), (2, 3), (4, 5), (7, 6)),
-                       cloud=dataclasses.replace(base.cloud, mls_radius=0.02, dedup=False),
-                       surface=dataclasses.replace(base.surface, grid_resolution=256))
-    (cams, imgs, masks), render_s = _timed(lambda: make_stereo_scene(
-        image_size=cfg.finest_size, span_deg=42.0, num_cameras=8, device="cuda"))
-    imgs = [np.clip(im, 0, 255).astype(np.uint8).astype(np.float32) for im in imgs]
-    masks = [np.where(m > 127, 255.0, 0.0).astype(np.float32) for m in masks]
+    cfg = bench_config()
+    (cams, imgs, masks), render_s = _timed(lambda: bench_scene(8, 42.0, cfg.finest_size))
     pairs = [PairInput(image0=imgs[a], image1=imgs[b], mask0=masks[a], mask1=masks[b],
                        K0=np.asarray(cams[a].K), Rt0=np.asarray(cams[a].Rt),
                        K1=np.asarray(cams[b].K), Rt1=np.asarray(cams[b].Rt))
@@ -1132,15 +1175,10 @@ def phase_reconstruct(card: str) -> dict:
         f"in {render_s:.2f} s; native library ready in {native_s:.2f} s "
         f"(g++ {native.build_seconds if native.build_seconds is not None else 'cached'})")
 
-    wrappers = (("ncc_sweep", K13.ncc_sweep), ("cost_volume", K13.cost_volume),
-                ("refine_sweeps_fused", K2.refine_sweeps_fused))
     runs = []
     for i in range(2):
-        for _, w in wrappers:
-            w.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        rec, wall = _timed(lambda: reconstruct(cfg, pairs, device="cuda"))
-        launches = {name: w.launches for name, w in wrappers}
+        rec, wall, launches = counted(lambda: reconstruct(cfg, pairs, device="cuda"))
         spans = {k: round(v, 4) for k, v in rec.timer.spans.items()}
         run = dict(wall_s=wall, spans=spans, launches=launches,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
@@ -1216,6 +1254,431 @@ def phase_reconstruct(card: str) -> dict:
                 raw_points=int(hv.sum()))
 
 
+# Scenes the CLI, video and satellite phases write (listed in .gitignore).
+SCRATCH = "_smoke"
+
+
+def write_calib(root: str, cams) -> None:
+    from reconstruction_tpu_torch.io.opencv_yaml import save_opencv_yaml
+    calib = {}
+    for i, c in enumerate(cams):
+        calib[f"intrinsic-{i}"] = np.asarray(c.K, np.float64)
+        calib[f"extrinsic-{i}"] = np.asarray(c.Rt, np.float64)
+    save_opencv_yaml(os.path.join(root, "calib_camera.yml"), calib)
+
+
+def _launch_line(launches: dict) -> str:
+    return "/".join(str(launches[k]) for k in ("ncc_sweep", "cost_volume",
+                                               "refine_sweeps_fused"))
+
+
+def log_seconds(stderr: str, t_launch: float, marker: str) -> float:
+    """Seconds from ``t_launch`` (the host's clock) to the first line of the
+    package's log (`utils/logging`: local time, milliseconds) that holds
+    ``marker``."""
+    import datetime
+    for line in stderr.splitlines():
+        if marker in line:
+            stamp = datetime.datetime.strptime(" ".join(line.split(" ", 2)[:2]),
+                                               "%Y-%m-%d %H:%M:%S,%f")
+            return stamp.timestamp() - t_launch
+    raise AssertionError(f"the CLI logged no line with {marker!r}")
+
+
+def startup_seconds() -> dict:
+    """A fresh interpreter's set-up that the CLI pays before its first
+    pair: the wall of the whole process, the imports of `reconstruct`'s
+    module, and the card's first context (one tensor, synchronized)."""
+    code = ("import json, time\nt0 = time.perf_counter()\n"
+            "import torch, reconstruction_tpu_torch.pipeline.reconstruct\n"
+            "t1 = time.perf_counter()\ntorch.zeros(1, device='cuda')\n"
+            "torch.cuda.synchronize()\n"
+            "print(json.dumps(dict(import_s=t1 - t0, cuda_init_s=time.perf_counter() - t1)))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the start-up probe failed: {proc.stderr[-2000:]}")
+    return dict(json.loads(proc.stdout.splitlines()[-1]), process_s=wall)
+
+
+def phase_cli(card: str) -> dict:
+    """The CLI on the reference's on-disk format at the full bench
+    configuration: the 8 views of `phase_reconstruct` written as PNG with
+    an OpenCV-YAML config (camID int32 rows, PyrmNum 4 from 160x240) and
+    calibration; `load_run_config` gives back the written arrays bit for
+    bit; `python3 -m reconstruction_tpu_torch config.yml` in a subprocess
+    writes the PLY that an in-process `reconstruct` of the same config
+    writes, byte for byte.  The subprocess's wall is split by its log's
+    time stamps and its `Timer` report, beside the parts measured alone."""
+    from reconstruction_tpu_torch.config import preset
+    from reconstruction_tpu_torch.io.images import imwrite
+    from reconstruction_tpu_torch.io.ply import write_ply
+    from reconstruction_tpu_torch.io.opencv_yaml import save_opencv_yaml
+    from reconstruction_tpu_torch.pipeline.reconstruct import load_run_config, reconstruct
+    from reconstruction_tpu_torch.utils.synthetic import point_to_surface_rmse
+
+    root = os.path.abspath(os.path.join(SCRATCH, "cli"))
+    os.makedirs(root, exist_ok=True)
+    size = preset("myself").finest_size
+    (cams, imgs, masks), render_s = _timed(lambda: bench_scene(8, 42.0, size))
+    t0 = time.perf_counter()
+    for i in range(8):
+        imwrite(os.path.join(root, f"view{i}.png"), imgs[i])
+        imwrite(os.path.join(root, f"mask{i}.png"), masks[i])
+    write_calib(root, cams)
+    path = os.path.join(root, "config.yml")
+    cli_ply, own_ply = os.path.join(root, "cli.ply"), os.path.join(root, "inprocess.ply")
+    save_opencv_yaml(path, {
+        "filepath": root, "outfilename": cli_ply, "isoutput": 0,
+        "camera_calib_name": "calib_camera.yml", "PyrmNum": 4,
+        "LowestLevelWidth": size[0] // 8, "LowestLevelHeight": size[1] // 8,
+        "imagelist": [f"view{i}.png" for i in range(8)],
+        "masklist": [f"mask{i}.png" for i in range(8)],
+        "camID": np.asarray(BENCH_PAIRS, np.int32)})
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg, pairs = load_run_config(path)
+    load_s = time.perf_counter() - t0
+    if not (cfg.cam_pairs == BENCH_PAIRS and cfg.pyramid_levels == 4
+            and cfg.finest_size == size and cfg.outfilename == cli_ply):
+        raise AssertionError(f"load_run_config read another config: {cfg}")
+    for (a, b), p in zip(BENCH_PAIRS, pairs):
+        for got, want in ((p.image0, imgs[a]), (p.image1, imgs[b]), (p.mask0, masks[a]),
+                          (p.mask1, masks[b]), (p.K0, np.asarray(cams[a].K, np.float64)),
+                          (p.Rt0, np.asarray(cams[a].Rt, np.float64)),
+                          (p.K1, np.asarray(cams[b].K, np.float64)),
+                          (p.Rt1, np.asarray(cams[b].Rt, np.float64))):
+            if not (got.dtype == want.dtype and np.array_equal(got, want)):
+                raise AssertionError("load_run_config does not give back the written arrays")
+    log(f"cli scene: 8 views {size[0]}x{size[1]} rendered in {render_s:.2f} s, written "
+        f"as PNG and OpenCV YAML in {write_s:.2f} s, read back bit for bit by "
+        f"load_run_config in {load_s:.2f} s")
+
+    t_launch, t0 = time.time(), time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "reconstruction_tpu_torch", path],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    sub_s = time.perf_counter() - t0
+    log(f"python3 -m reconstruction_tpu_torch config.yml: exit {proc.returncode} in "
+        f"{sub_s:.2f} s wall ({card}); its report:\n"
+        + "\n".join("  " + line for line in proc.stdout.splitlines()))
+    if proc.returncode != 0 or "total time:" not in proc.stdout \
+            or "poisson" not in proc.stdout:
+        raise AssertionError(f"the CLI failed: {proc.stderr[-3000:]}")
+    report = dict(line.rsplit(None, 1) for line in proc.stdout.splitlines()
+                  if line.endswith("s") and not line.startswith("total time"))
+    wall = dict(subprocess_s=sub_s, first_pair_s=log_seconds(proc.stderr, t_launch, "pair 1/"),
+                wrote_s=log_seconds(proc.stderr, t_launch, "INFO wrote "),
+                spans_s=float(report["total"][:-1]),
+                main_s=float(proc.stdout.split("total time:")[1].split()[0]))
+    wall["between_spans_s"] = wall["wrote_s"] - wall["first_pair_s"] - wall["spans_s"]
+    wall["after_write_s"] = sub_s - wall["wrote_s"]
+    wall.update(startup_seconds())
+
+    rec, own_s, launches = counted(lambda: reconstruct(cfg, pairs, output_path=own_ply,
+                                                       device="cuda"))
+    with open(cli_ply, "rb") as f:
+        cli_bytes = f.read()
+    with open(own_ply, "rb") as f:
+        own_bytes = f.read()
+    same_bytes = cli_bytes == own_bytes
+    _, wall["write_ply_s"] = _timed(lambda: write_ply(
+        os.path.join(root, "again.ply"), rec.vertices, colors=rec.colors, faces=rec.faces,
+        color_order="bgr"))
+    wall["load_run_config_s"] = load_s
+    log("cli wall, split (seconds after launch from its log's stamps; the parts alone "
+        f"in brackets): first pair's log line at {wall['first_pair_s']:.2f} [a fresh "
+        f"process importing torch and the package {wall['process_s'] - wall['cuda_init_s']:.2f}"
+        f", of it the imports {wall['import_s']:.2f}; the card's first context "
+        f"{wall['cuda_init_s']:.2f}; load_run_config {load_s:.2f}]; Timer spans "
+        f"{wall['spans_s']:.2f}; between and after the spans up to the PLY's log line "
+        f"{wall['between_spans_s']:.2f} [write_ply {wall['write_ply_s']:.2f}]; report and "
+        f"exit {wall['after_write_s']:.2f}; main's own total {wall['main_s']:.2f} of "
+        f"{sub_s:.2f} ({card})")
+    rmse = point_to_surface_rmse(np.asarray(rec.vertices))
+    spans = {k: round(v, 4) for k, v in rec.timer.spans.items()}
+    log(f"cli vs in-process reconstruct: PLY bytes equal={same_bytes} "
+        f"({len(cli_bytes)} and {len(own_bytes)} bytes); mesh {len(rec.vertices)} "
+        f"vertices / {len(rec.faces)} faces, "
+        f"interior RMSE {rmse:.6f} (recorded: the myself preset's mls_radius 2.5 is "
+        f"not the bench's), in-process {own_s:.2f} s wall, K1/K3/K2 launches "
+        f"{_launch_line(launches)} ({card}); stage seconds {spans}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the CLI's reconstruct")
+    if not (same_bytes and np.isfinite(rec.vertices).all() and len(rec.faces) > 0):
+        raise AssertionError("the CLI's PLY differs from the in-process reconstruct's")
+    return dict(render_s=render_s, write_s=write_s, load_s=load_s, subprocess_s=sub_s,
+                cli_wall=wall,
+                inprocess_s=own_s, same_bytes=same_bytes,
+                verts=int(len(rec.vertices)), faces=int(len(rec.faces)), rmse=rmse,
+                launches=launches, spans=spans, cli_stdout=proc.stdout)
+
+
+# The video's rig angle error, degrees, with closures and of the chain
+# alone: above the largest this configuration gives on the card (1.478 and
+# 0.806; the runs are deterministic), well under the 4.5 of no estimate.
+VIDEO_ANGLE_LIMITS = (2.0, 1.0)
+
+
+def orbit_rig(num_cameras: int, span_deg: float, size, frame: int,
+              step_deg: float = 1.5):
+    """`tools/demo_video.py`'s rig at frame ``frame``: the rig rotated by
+    frame * step_deg about the scene's z axis."""
+    from reconstruction_tpu_torch.core.camera import synthetic_rig
+    a = np.radians(frame * step_deg)
+    Rw = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                   [0.0, 0.0, 1.0]])
+    cams = []
+    for c in synthetic_rig(num_cameras=num_cameras, radius=8.0, span_deg=span_deg,
+                           focal=size[0] * 1.6, image_size=size):
+        Rt = np.asarray(c.Rt)
+        cams.append(type(c)(K=c.K, Rt=np.concatenate([Rt[:, :3] @ Rw.T, Rt[:, 3:]], 1)))
+    return cams
+
+
+def rig_angle_error(T: np.ndarray, frame: int, step_deg: float = 1.5) -> float:
+    """Degrees between a pose's z rotation and the orbit's: the scene is
+    fixed and the rig turns +step a frame, so the anchor's flow sees
+    -frame * step (`tools/demo_video.py:98-107`)."""
+    e = abs(np.degrees(np.arctan2(T[1, 0], T[0, 0])) + frame * step_deg) % 360
+    return float(min(e, 360 - e))
+
+
+def phase_video(card: str) -> dict:
+    """`reconstruct_video` at ROADMAP A9's size: 4 frames of 6 cameras in 3
+    pairs at 1280x1920 (the bench configuration's preset), the rig orbiting
+    1.5 degrees a frame, loop closures every 3 frames.  Then the pose chain
+    without closures, and `_estimate_relative_pose` card against CPU on
+    two 320x240 frames."""
+    import torch
+    from reconstruction_tpu_torch.pipeline import reconstruct as recon_mod
+    from reconstruction_tpu_torch.pipeline import video
+    from reconstruction_tpu_torch.pipeline.reconstruct import PairInput
+    from reconstruction_tpu_torch.utils.synthetic import point_to_surface_rmse, render_view
+
+    cfg = bench_config().replace(cam_pairs=((0, 1), (2, 3), (4, 5)))
+    size = cfg.finest_size
+    frames, render_s = {}, []
+
+    def loader(i):
+        if i not in frames:
+            cams = orbit_rig(6, 30.0, size, i)
+            (views, s) = _timed(lambda: [render_view(c, size, device="cuda") for c in cams])
+            render_s.append(s)
+            imgs, masks = quantized([v[0] for v in views], [v[1] for v in views])
+            frames[i] = [PairInput(image0=imgs[a], image1=imgs[b], mask0=masks[a],
+                                   mask1=masks[b], K0=np.asarray(cams[a].K),
+                                   Rt0=np.asarray(cams[a].Rt), K1=np.asarray(cams[b].K),
+                                   Rt1=np.asarray(cams[b].Rt)) for a, b in cfg.cam_pairs]
+        return frames[i]
+
+    # The driver's default per-frame reconstruction, timed frame by frame.
+    real, frame_s = recon_mod.reconstruct, []
+
+    def timed_reconstruct(*a, **kw):
+        out, s = _timed(lambda: real(*a, **kw))
+        frame_s.append(s)
+        return out
+
+    recon_mod.reconstruct = timed_reconstruct
+    try:
+        results, wall, launches = counted(lambda: video.reconstruct_video(
+            cfg, loader, 4, depth_hint=8.0, loop_closure_stride=3, device="cuda"))
+    finally:
+        recon_mod.reconstruct = real
+
+    class NoMesh:
+        vertices = np.zeros((0, 3), np.float32)
+        faces = np.zeros((0, 3), np.int32)
+
+    chain = video.reconstruct_video(cfg, loader, 4, reconstruct_frame=lambda c, p: NoMesh(),
+                                    depth_hint=8.0, device="cuda")
+    err = [rig_angle_error(r.rig_pose, f) for f, r in enumerate(results)]
+    err_chain = [rig_angle_error(r.rig_pose, f) for f, r in enumerate(chain)]
+    rmse = [point_to_surface_rmse(np.asarray(r.mesh_vertices)) for r in results]
+    verts = [int(len(r.mesh_vertices)) for r in results]
+    log(f"video: 4 frames x 6 views {size[0]}x{size[1]}, {wall:.2f} s wall (render "
+        f"{sum(render_s):.2f} s of it), per-frame reconstruct seconds "
+        f"{[round(s, 3) for s in frame_s]} ({card}); K1/K3/K2 launches "
+        f"{_launch_line(launches)}")
+    log(f"video: mesh vertices {verts}, RMSE {[round(v, 6) for v in rmse]}; rig angle "
+        f"error (degrees) with closures {[round(e, 4) for e in err]}, chain without "
+        f"closures {[round(e, 4) for e in err_chain]} (gates {VIDEO_ANGLE_LIMITS}; no "
+        "estimate: 4.5 at frame 3)")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by reconstruct_video")
+    if not (all(np.isfinite(r.mesh_vertices).all() and len(r.mesh_faces) > 0
+                for r in results) and max(rmse) <= RMSE_LIMIT
+            and max(err) <= VIDEO_ANGLE_LIMITS[0] and max(err_chain) <= VIDEO_ANGLE_LIMITS[1]):
+        raise AssertionError("reconstruct_video outside its gates")
+
+    # The pose estimate on two 320x240 frames, card against CPU.
+    small = (320, 240)
+    gray = []
+    for f in (0, 1):
+        cam = orbit_rig(2, 24.0, small, f)[0]
+        gray.append((render_view(cam, small)[0].mean(-1), cam))
+    K, Rt = np.asarray(gray[0][1].K), np.asarray(gray[0][1].Rt)
+    matches, real_match = {}, video.match_descriptors
+
+    def keep_matches(*a, **kw):
+        m = real_match(*a, **kw)
+        matches[m.device.type] = m.cpu().numpy()
+        return m
+
+    video.match_descriptors = keep_matches
+    try:
+        T_gpu = video._estimate_relative_pose(gray[0][0], gray[1][0], K, Rt, 8.0, device="cuda")
+        T_cpu = video._estimate_relative_pose(gray[0][0], gray[1][0], K, Rt, 8.0, device="cpu")
+    finally:
+        video.match_descriptors = real_match
+    same = bool(np.array_equal(matches["cuda"], matches["cpu"]))
+    dT = float(np.abs(T_gpu - T_cpu).max())
+    log(f"relative pose 320x240, card vs CPU: matches equal={same} "
+        f"({int((matches['cpu'] >= 0).sum())} matches), max |dT| {dT:.3g}")
+    if not (same and dT <= 1e-4):
+        raise AssertionError("the relative pose differs between card and CPU")
+    torch.cuda.synchronize()
+    return dict(wall_s=wall, render_s=render_s, frame_s=frame_s, launches=launches,
+                verts=verts, rmse=rmse, angle_err=err, angle_err_chain=err_chain,
+                small_matches_equal=same, small_dT=dT)
+
+
+def phase_satellites(card: str) -> dict:
+    """The CLI's other modes: `segment_frame` on a 1280x1920 frame and card
+    against CPU at 240x320; `depth_to_points` at Kinect v2's 512x424 card
+    against CPU; `run_batch` over a take of 10 cameras at 1280x1920 and two
+    expressions; `cut_image_dir` on two cameras' frames."""
+    import torch
+    from reconstruction_tpu_torch.io.images import imwrite
+    from reconstruction_tpu_torch.io.opencv_yaml import load_opencv_yaml
+    from reconstruction_tpu_torch.io.ply import read_ply
+    from reconstruction_tpu_torch.pipeline import batch, kinect, segmentation as seg
+
+    out = {}
+    rng = np.random.default_rng(5)
+
+    def frame(H, W):
+        """tests/test_pipeline_satellites.py's 64x80 frame, scaled to H x W."""
+        bg = rng.uniform(80, 120, (H, W, 3)).astype(np.float32)
+        img = bg.copy()
+        ys, xs = H / 64, W / 80
+        y0, y1, x0, x1 = int(20 * ys), int(44 * ys), int(30 * xs), int(54 * xs)
+        img[y0:y1, x0:x1] = rng.uniform(180, 250, (y1 - y0, x1 - x0, 3))
+        inside = (slice(int(26 * ys), int(38 * ys)), slice(int(36 * xs), int(48 * xs)))
+        return img, bg, inside, (slice(None), slice(0, int(20 * xs)))
+
+    img, bg, inside, outside = frame(1920, 1280)
+    seg.segment_frame(img[:64, :80], bg[:64, :80], device="cuda")   # first CUDA use
+    seg.flood_fill.readbacks = 0
+    mask, s = _timed(lambda: seg.segment_frame(img, bg, device="cuda"))
+    fg_in, fg_out = float((mask[inside] > 0).mean()), float((mask[outside] > 0).mean())
+    out["segment_full"] = dict(seconds=s, readbacks=seg.flood_fill.readbacks,
+                               inside=fg_in, outside=fg_out)
+    log(f"segment_frame 1280x1920 on the card: {s:.3f} s, {seg.flood_fill.readbacks} "
+        f"flood_fill read-backs (checks every {seg.CHECK_EVERY} steps), foreground "
+        f"{fg_in:.4f} inside, {fg_out:.4f} on the left strip ({card})")
+    if not (fg_in > 0.8 and fg_out < 0.1):
+        raise AssertionError("segment_frame misses the foreground at 1280x1920")
+
+    img, bg, _, _ = frame(240, 320)
+    m_gpu = seg.segment_frame(img, bg, device="cuda")
+    m_cpu = seg.segment_frame(img, bg, device="cpu")
+    same = bool(np.array_equal(m_gpu, m_cpu))
+    out["segment_small_equal"] = same
+    log(f"segment_frame 240x320 card vs CPU: equal={same}, foreground "
+        f"{float((m_cpu > 0).mean()):.4f}")
+    if not same:
+        raise AssertionError("segment_frame differs between card and CPU")
+
+    H, W = 424, 512
+    depth = rng.integers(500, 4500, (H, W)).astype(np.float32)
+    depth[rng.uniform(size=(H, W)) < 0.1] = 0
+    bgd = np.clip(depth + rng.integers(-300, 1500, (H, W)), 0, 8000).astype(np.float32)
+    intr = np.float32([365.3, 365.1, 256.7, 212.2])
+    bbox = np.float32([10, 500, 5, 420])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pts, ok = kinect.depth_to_points(*(torch.as_tensor(a, device=dev)
+                                           for a in (depth, bgd, intr, bbox)))
+        res[dev] = (pts.cpu().numpy(), ok.cpu().numpy())
+    ok_same = bool(np.array_equal(res["cuda"][1], res["cpu"][1]))
+    a, b = res["cuda"][0], res["cpu"][0]
+    ulps = int(np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32)).max())
+    out["kinect"] = dict(valid_equal=ok_same, max_ulps=ulps, points=int(res["cpu"][1].sum()))
+    log(f"depth_to_points 512x424 card vs CPU: validity equal={ok_same}, "
+        f"{int(res['cpu'][1].sum())} points, largest difference {ulps} ulp")
+    if not (ok_same and ulps <= 1):
+        raise AssertionError("depth_to_points differs between card and CPU")
+
+    # run_batch over one take: 10 cameras, both expressions, JPEG images and
+    # masks under the reference's names.
+    root = os.path.abspath(os.path.join(SCRATCH, "batch"))
+    take, outdir = os.path.join(root, "take"), os.path.join(root, "out")
+    os.makedirs(os.path.join(take, "mask"), exist_ok=True)
+    size = bench_config().finest_size
+    (cams, imgs, masks), render_s = _timed(lambda: bench_scene(10, 54.0, size))
+    t0 = time.perf_counter()
+    for e in range(batch.EXPRESSION_NUM):
+        for j in range(batch.CAMERA_NUM):
+            name = f"{e + 1:04d}_Cam{j}.jpg"
+            imwrite(os.path.join(take, name), imgs[j])
+            imwrite(os.path.join(take, "mask", name), masks[j])
+    write_calib(take, cams)
+    with open(os.path.join(root, "path.txt"), "w") as f:
+        f.write(f"{take} {outdir}\n")
+    write_s = time.perf_counter() - t0
+    for e in (1, 2):
+        if os.path.exists(os.path.join(outdir, f"{e}.ply")):
+            os.remove(os.path.join(outdir, f"{e}.ply"))
+    _, batch_s, launches = counted(lambda: batch.run_batch(os.path.join(root, "path.txt"),
+                                                           device="cuda"))
+    meshes, configs_equal = [], True
+    for e in range(batch.EXPRESSION_NUM):
+        meshes.append(len(read_ply(os.path.join(outdir, f"{e + 1}.ply")).xyz))
+        got = load_opencv_yaml(os.path.join(outdir, f"config_{e + 1}.yml"))
+        want = batch.generate_take_config(take, outdir, e)
+        configs_equal &= (
+            got["filepath"] == want.filepath and got["outfilename"] == want.outfilename
+            and bool(got["isoutput"]) == want.isoutput
+            and got["camera_calib_name"] == want.camera_calib_name
+            and got["PyrmNum"] == want.pyramid_levels
+            and (got["LowestLevelWidth"], got["LowestLevelHeight"]) == want.lowest_level_size
+            and tuple(got["imagelist"]) == want.imagelist
+            and tuple(got["masklist"]) == want.masklist
+            and tuple(tuple(int(v) for v in r) for r in got["camID"]) == want.cam_pairs)
+    out["batch"] = dict(render_s=render_s, write_s=write_s, seconds=batch_s,
+                        launches=launches, verts=meshes, configs_equal=configs_equal)
+    log(f"run_batch: 1 take x 2 expressions, 10 views {size[0]}x{size[1]} (JPEG, "
+        f"written in {write_s:.2f} s): {batch_s:.2f} s wall ({card}), meshes {meshes} vertices, "
+        f"config_1/2.yml equal to generate_take_config={configs_equal}, K1/K3/K2 "
+        f"launches {_launch_line(launches)}")
+    if not (configs_equal and min(meshes) > 0 and min(launches.values()) > 0):
+        raise AssertionError("run_batch outside its gates")
+
+    # cut_image_dir: two cameras, two frames each (the second one's views
+    # as the first's second frame, so the background model is their mean).
+    cut = os.path.join(root, "cut")
+    os.makedirs(cut, exist_ok=True)
+    for j in (0, 1):
+        for e in (1, 2):
+            imwrite(os.path.join(cut, f"{e:04d}_Cam{j}.jpg"), imgs[j + 2 * (e - 1)])
+    seg.flood_fill.readbacks = 0
+    _, cut_s = _timed(lambda: seg.cut_image_dir(cut, device="cuda"))
+    n = len(os.listdir(os.path.join(cut, "mask")))
+    out["cut_image_dir"] = dict(seconds=cut_s, masks=n, readbacks=seg.flood_fill.readbacks)
+    log(f"cut_image_dir: 2 cameras x 2 frames {size[0]}x{size[1]}, {n} masks in "
+        f"{cut_s:.2f} s, {seg.flood_fill.readbacks} flood_fill read-backs ({card})")
+    if n != 4:
+        raise AssertionError("cut_image_dir did not write its 4 masks")
+    return out
+
+
 def main() -> int:
     import torch
     # The package comes first: alone in a directory the script stops here.
@@ -1243,7 +1706,9 @@ def main() -> int:
     only = {"kernels": lambda: phase_kernels(card), "slice": lambda: phase_slice(card),
             "small": phase_small_reference, "mxu": lambda: phase_mxu_path(card),
             "ba": lambda: phase_ba(card), "front": lambda: phase_front_end(card),
-            "reconstruct": lambda: phase_reconstruct(card)}
+            "reconstruct": lambda: phase_reconstruct(card), "cli": lambda: phase_cli(card),
+            "video": lambda: phase_video(card),
+            "satellites": lambda: phase_satellites(card)}
     if sys.argv[1:]:
         for name in sys.argv[1:]:
             only[name]()
@@ -1256,6 +1721,9 @@ def main() -> int:
     ba = phase_ba(card)
     front = phase_front_end(card)
     recon = phase_reconstruct(card)
+    cli = phase_cli(card)
+    vid = phase_video(card)
+    sat = phase_satellites(card)
 
     src = "reconstruction_tpu_torch/csrc/"
     rows = [
@@ -1284,7 +1752,8 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=rows, kernel_times=kern, slice=sl,
                        small=small, mxu_path=mxu, ba=ba, front_end=front,
-                       reconstruct=recon, build_log=_build.build_log), f, indent=1)
+                       reconstruct=recon, cli=cli, video=vid, satellites=sat,
+                       build_log=_build.build_log), f, indent=1, default=str)
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

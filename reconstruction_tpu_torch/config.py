@@ -3,7 +3,9 @@
 The same field names, defaults and presets as the reference's, for the
 parts the port runs: the run keys, the pyramid keys, the pair table,
 `StereoParams`, `CloudParams` and `SurfaceParams`.  The bundle-adjustment
-and layout parameters come with the stages that read them.  The port
+and layout parameters come with the stages that read them; the
+reference's `dispatch_depth` (its bound on pairs in flight) has no
+counterpart, since the port runs the pairs one after the other.  The port
 imports nothing of the JAX package, so it stands alone on a machine that
 has no JAX.
 """
@@ -128,10 +130,14 @@ class ReconstructionConfig:
     filepath: str = ""
     outfilename: str = "out.ply"
     isoutput: bool = False
+    camera_calib_name: str = "calib_camera.yml"
     # Pyramid levels (`PyrmNum`).
     pyramid_levels: int = 4
     # Coarsest-level size (`LowestLevelWidth/Height`): (width, height).
     lowest_level_size: Tuple[int, int] = (160, 240)
+    # Per-camera relative image/mask paths, indexed by camID.
+    imagelist: Tuple[str, ...] = ()
+    masklist: Tuple[str, ...] = ()
     # Stereo pair table: rows of (left camID, right camID)
     # (`BatchProcess/main.cpp:30-35`).
     cam_pairs: Tuple[Tuple[int, int], ...] = ((0, 1), (2, 3), (4, 5), (7, 6))

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,9 +30,10 @@ from reconstruction_tpu_torch.cloud.filters import (
     radius_outlier_filter, radius_outlier_filter_np, sor_filter)
 from reconstruction_tpu_torch.cloud.mls import mls_smooth
 from reconstruction_tpu_torch.cloud.normals import estimate_normals
-from reconstruction_tpu_torch.config import ReconstructionConfig
+from reconstruction_tpu_torch.config import ReconstructionConfig, preset
 from reconstruction_tpu_torch.core.rectify import RectifyResult
-from reconstruction_tpu_torch.io.images import imwrite
+from reconstruction_tpu_torch.io.images import check_writable, imread, imwrite
+from reconstruction_tpu_torch.io.opencv_yaml import load_opencv_yaml
 from reconstruction_tpu_torch.io.ply import write_ply
 from reconstruction_tpu_torch.pipeline.checkpoint import StageStore
 from reconstruction_tpu_torch.pipeline.scan_mesh import pair_scan_mesh
@@ -77,6 +78,47 @@ class Reconstruction:
     timer: Timer = field(default_factory=Timer)
 
 
+def load_pairs(cfg: ReconstructionConfig) -> List[PairInput]:
+    """The calibration, images and masks of every pair of ``cfg.cam_pairs``,
+    read from ``cfg.filepath`` (`CManageData::Init`, `CManageData.cpp:45-79`)."""
+    calib = load_opencv_yaml(os.path.join(cfg.filepath, cfg.camera_calib_name))
+
+    def load_cam(cid):
+        return (np.asarray(calib[f"intrinsic-{cid}"], np.float64),
+                np.asarray(calib[f"extrinsic-{cid}"], np.float64),
+                imread(os.path.join(cfg.filepath, cfg.imagelist[cid])),
+                imread(os.path.join(cfg.filepath, cfg.masklist[cid]), grayscale=True))
+
+    pairs = []
+    for a, b in cfg.cam_pairs:
+        K0, Rt0, i0, m0 = load_cam(a)
+        K1, Rt1, i1, m1 = load_cam(b)
+        pairs.append(PairInput(image0=i0, image1=i1, mask0=m0, mask1=m1,
+                               K0=K0, Rt0=Rt0, K1=K1, Rt1=Rt1))
+    return pairs
+
+
+def load_run_config(config_path: str) -> Tuple[ReconstructionConfig, List[PairInput]]:
+    """Load a reference-format run config, its calibration and its images
+    (`CManageData::Init`, `CManageData.cpp:24-79`): the "myself" preset
+    with the file's run keys."""
+    raw = load_opencv_yaml(config_path)
+    cam_id = np.asarray(raw["camID"], np.int64)
+    cfg = preset("myself").replace(
+        filepath=raw.get("filepath", ""),
+        outfilename=raw.get("outfilename", "out.ply"),
+        isoutput=bool(raw.get("isoutput", 0)),
+        camera_calib_name=raw.get("camera_calib_name", "calib_camera.yml"),
+        pyramid_levels=int(raw.get("PyrmNum", 4)),
+        lowest_level_size=(int(raw.get("LowestLevelWidth", 160)),
+                           int(raw.get("LowestLevelHeight", 240))),
+        imagelist=tuple(raw.get("imagelist", ())),
+        masklist=tuple(raw.get("masklist", ())),
+        cam_pairs=tuple(tuple(int(v) for v in row) for row in cam_id),
+    )
+    return cfg, load_pairs(cfg)
+
+
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -107,6 +149,11 @@ def reconstruct(
     dev = torch.device(device)
     if cfg.isoutput and artifact_dir is None:
         artifact_dir = "tmp"
+    if cfg.isoutput and artifact_dir:
+        # Fail before the first pair, not after all their stereo: the
+        # rectified views are .jpg files, which need Pillow.
+        os.makedirs(artifact_dir, exist_ok=True)
+        check_writable(os.path.join(artifact_dir, "0_0.jpg"))
     timer = Timer(dev)
     stats = StageStats()
     store = StageStore(checkpoint_dir) if checkpoint_dir else None
@@ -175,7 +222,6 @@ def reconstruct(
         rect = res.rectification
         img0, img1 = (_np(im).astype(np.float32) for im in res.rect_images)
         if cfg.isoutput and artifact_dir:
-            os.makedirs(artifact_dir, exist_ok=True)
             write_ply(os.path.join(artifact_dir, f"cloud{pi}.ply"), xyz,
                       colors=col, color_order="bgr")
             # Rectified views, `<pair>_<camID>.jpg` (`CStereoMatching.cpp:159-166`).

@@ -39,3 +39,9 @@ class Timer:
 
     def span(self, name: str) -> "Timer._Span":
         return Timer._Span(self, name)
+
+    def report(self) -> str:
+        total = sum(self.spans.values())
+        lines = [f"{k:<32s} {v:8.3f}s" for k, v in self.spans.items()]
+        lines.append(f"{'total':<32s} {total:8.3f}s")
+        return "\n".join(lines)

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "reconstruction_tpu_torch"
 
@@ -44,8 +46,18 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.io.ply\n"
         "import reconstruction_tpu_torch.io.images\n"
         "import reconstruction_tpu_torch.native\n"
+        "import reconstruction_tpu_torch.__main__\n"
+        "import reconstruction_tpu_torch.io.opencv_yaml\n"
+        "import reconstruction_tpu_torch.pipeline.batch\n"
+        "import reconstruction_tpu_torch.pipeline.kinect\n"
+        "import reconstruction_tpu_torch.pipeline.segmentation\n"
+        "import reconstruction_tpu_torch.pipeline.video\n"
+        "import reconstruction_tpu_torch.surface.simplify\n"
+        "import reconstruction_tpu_torch.utils.metrics\n"
+        "import reconstruction_tpu_torch.utils.watchdog\n"
+        "import reconstruction_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'reconstruction_tpu'))\n"
+        "             ('jax', 'jaxlib', 'reconstruction_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     assert proc.returncode == 0, proc.stderr
@@ -74,6 +86,35 @@ def test_reconstruct_runs_on_the_card_by_default():
     import inspect
     from reconstruction_tpu_torch.pipeline.reconstruct import reconstruct
     assert inspect.signature(reconstruct).parameters["device"].default == "cuda"
+
+
+NEW_ENTRY_POINTS = [
+    ("reconstruction_tpu_torch.__main__", "main"),
+    ("reconstruction_tpu_torch.pipeline.batch", "run_batch"),
+    ("reconstruction_tpu_torch.pipeline.kinect", "kinect_to_cloud"),
+    ("reconstruction_tpu_torch.pipeline.segmentation", "cut_image_dir"),
+    ("reconstruction_tpu_torch.pipeline.segmentation", "segment_frame"),
+    ("reconstruction_tpu_torch.pipeline.video", "reconstruct_video"),
+    ("reconstruction_tpu_torch.pipeline.video", "_estimate_relative_pose"),
+    ("reconstruction_tpu_torch.utils.metrics", "point_to_mesh_distance"),
+    ("reconstruction_tpu_torch.utils.metrics", "chamfer_distance"),
+    ("reconstruction_tpu_torch.utils.profiling", "resolve_chip"),
+]
+
+
+@pytest.mark.parametrize("module, name", NEW_ENTRY_POINTS)
+def test_new_entry_point_runs_on_the_card_by_default(module, name):
+    import importlib
+    import inspect
+    fn = getattr(importlib.import_module(module), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_no_module_reads_yaml_through_pyyaml():
+    for f in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import yaml") or s.startswith("from yaml")), (f, line)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

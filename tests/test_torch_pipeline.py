@@ -142,7 +142,8 @@ def test_config_presets_match_reference(name):
         assert dataclasses.asdict(getattr(got, part)) == dataclasses.asdict(
             getattr(ref, part)), part
     for key in ("pyramid_levels", "lowest_level_size", "finest_size", "cam_pairs",
-                "num_pairs", "filepath", "outfilename", "isoutput"):
+                "num_pairs", "filepath", "outfilename", "isoutput",
+                "camera_calib_name", "imagelist", "masklist"):
         assert getattr(got, key) == getattr(ref, key), key
     for level in range(ref.pyramid_levels):
         assert got.level_size(level) == ref.level_size(level)
