@@ -43,20 +43,33 @@ Phases (any failure raises; the exit code is then non-zero):
      ms per ba_step
   7. Harris, colour descriptors, tracks and structure-only BA on three
      rendered 1280x1920 views (surface error), and at 160x120 card vs CPU
-  8. reconstruct at the bench configuration, twice (phase_reconstruct)
+  8. reconstruct at the bench configuration, twice (phase_reconstruct),
+     and in a fresh subprocess the first and second call of the splat,
+     a sort and an rFFT (`first_calls`)
   9. the CLI on the reference's on-disk format at that configuration: a
      subprocess `python3 -m reconstruction_tpu_torch config.yml` against an
      in-process reconstruct of the same config, PLY bytes equal
- 10. reconstruct_video: 4 frames of 6 views at 1280x1920, the rig orbiting
+ 10. the multi-device layer (`parallel/`) at the bench configuration: one
+     NCCL rank in this process (reconstruct(mesh=...), ba_step_sharded,
+     refine_tiled at 1280x1920 with 120 sweeps, the z-sharded multigrid at
+     256^3, each bit-equal to its single-device counterpart); four gloo
+     ranks on the card (`parallel_rank`: the 4 pairs one a rank bit-equal
+     to match_pair with K1/K3/K2 on every rank, the tile refine bit-equal,
+     BA within the JAX package's criteria with K4 on every rank, splat
+     within 1e-4, multigrid within 1e-6; each rank's wall, collective
+     seconds (`CommClock`) and peak memory; the splat with its points of
+     weight 0 left in, not gated; `parallel/dryrun.py` over one rank and
+     over the four); the CLI with --sharded, PLY bytes equal
+ 11. reconstruct_video: 4 frames of 6 views at 1280x1920, the rig orbiting
      1.5 degrees a frame, closures every 3 frames; the pose estimate card
      against CPU at 320x240
- 11. the other modes: segment_frame at 1280x1920 and card against CPU,
+ 12. the other modes: segment_frame at 1280x1920 and card against CPU,
      depth_to_points card against CPU, run_batch over a 10-camera take,
      cut_image_dir
- 12. the kernels line, the card line, and last {"ok": true, "device": {...}}
+ 13. the kernels line, the card line, and last {"ok": true, "device": {...}}
 
 Named phases run alone (no kernels line, no result): kernels, slice, small,
-mxu, ba, front, reconstruct, cli, video, satellites.
+mxu, ba, front, reconstruct, cli, video, satellites, parallel.
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -1147,6 +1160,33 @@ def bench_scene(num_cameras: int, span_deg: float, size):
     return (cams,) + quantized(imgs, masks)
 
 
+def first_calls() -> dict:
+    """Seconds of the first and the second call, in a fresh process, of
+    device operations a process pays for once: the deterministic splat
+    (`surface/poisson._splat3`, sort-based `index_put_`) of 2^20 points
+    into a 256^3 grid, a stable sort of 2^20 int64 keys and a 256^3
+    rFFT/irFFT round trip; the card synchronized around each call.  Run in
+    a subprocess of its own by `phase_reconstruct`."""
+    import torch
+    from reconstruction_tpu_torch.surface.poisson import _splat3
+
+    dev = torch.device("cuda")
+    _, context_s = _timed(lambda: torch.zeros(1, device=dev))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    pts = (torch.rand((1 << 20, 3), generator=g) * 250.0).to(dev)
+    vals = torch.rand((1 << 20, 4), generator=g).to(dev)
+    w = torch.ones(1 << 20, device=dev)
+    keys = torch.randint(0, 1 << 24, (1 << 20,), generator=g).to(dev)
+    f = torch.rand((256, 256, 256), generator=g).to(dev)
+    ops = {
+        "splat3": lambda: _splat3(torch.zeros((256, 256, 256, 4), device=dev), pts, w, vals),
+        "sort_int64": lambda: torch.sort(keys, stable=True),
+        "rfftn_256": lambda: torch.fft.irfftn(torch.fft.rfftn(f), s=f.shape),
+    }
+    return dict(context_s=context_s,
+                **{name: [_timed(op)[1], _timed(op)[1]] for name, op in ops.items()})
+
+
 def phase_reconstruct(card: str) -> dict:
     """`reconstruct` at the full bench configuration (`bench.py:69-139`):
     the myself preset at 1280x1920, 8 cameras on a 42-degree arc rendered
@@ -1207,6 +1247,19 @@ def phase_reconstruct(card: str) -> dict:
             and np.isfinite(rec.vertices).all() and float(np.std(rec.colors)) > 10.0):
         raise AssertionError("reconstruct outside its gates")
 
+    # What a fresh process pays once, operation by operation (the first
+    # run's Poisson span holds ~12 s more than the second's).
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps(chip_smoke.first_calls()))"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"first_calls failed: {proc.stderr[-3000:]}")
+    first = json.loads(proc.stdout.splitlines()[-1])
+    log(f"a fresh process's first and second call, seconds ({card}): CUDA context "
+        f"{first['context_s']:.3f}; " + "; ".join(
+            f"{k} {v[0]:.3f} then {v[1]:.4f}" for k, v in first.items() if k != "context_s"))
+
     # The cloud stages on the two backends, each timed warm (one call first).
     cloud = rec.pair_results[0].cloud
     hx, hv = cloud.xyz.cpu().numpy(), cloud.valid.cpu().numpy()
@@ -1251,7 +1304,8 @@ def phase_reconstruct(card: str) -> dict:
                     f"agree {v['agree']:.4g}" for k, v in backends.items()))
     return dict(runs=[r for _, r in runs], identical=same, vert_ratio=ratio,
                 launches=run["launches"], render_s=render_s, backends=backends,
-                raw_points=int(hv.sum()))
+                first_calls=first,
+                raw_points=int(hv.sum()), rec=rec, scene=(cams, imgs, masks))
 
 
 # Scenes the CLI, video and satellite phases write (listed in .gitignore).
@@ -1416,6 +1470,607 @@ def phase_cli(card: str) -> dict:
                 inprocess_s=own_s, same_bytes=same_bytes,
                 verts=int(len(rec.vertices)), faces=int(len(rec.faces)), rmse=rmse,
                 launches=launches, spans=spans, cli_stdout=proc.stdout)
+
+
+def _digest(a) -> str:
+    """sha256 of an array's dtype, shape and bytes (equal digests: equal
+    arrays, bit for bit)."""
+    import hashlib
+    a = a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype}{a.shape}".encode() + a.tobytes()).hexdigest()
+
+
+def _pair_digests(res) -> dict:
+    """Digests of what a PairResult carries downstream."""
+    return dict(disparity=_digest(res.disparity), xyz=_digest(res.cloud.xyz),
+                colors=_digest(res.cloud.colors), valid=_digest(res.cloud.valid),
+                rect0=_digest(res.rect_images[0]), rect1=_digest(res.rect_images[1]),
+                mask0=_digest(res.rect_masks[0]), mask1=_digest(res.rect_masks[1]),
+                em0=_digest(res.rect_masks_eroded[0]), drift=_digest(res.refine_drift),
+                margins0=[int(v) for v in res.margins0])
+
+
+def vcycle_inputs(R: int, dev):
+    """The multigrid's right-hand side (two opposite point charges) and a
+    nonuniform screen at R^3 (tests/test_parallel.py:216-252 at scale)."""
+    import torch
+    rng = np.random.default_rng(11)
+    f = np.zeros((R, R, R), np.float32)
+    f[R // 4, R // 4, R // 4] = 1.0
+    f[3 * R // 4, 5 * R // 8, R // 2] = -1.0
+    screen = (0.1 * rng.uniform(size=(R, R, R))).astype(np.float32)
+    return torch.from_numpy(f).to(dev), torch.from_numpy(screen).to(dev)
+
+
+def dense_vcycle(f, screen, levels: int, cycles: int):
+    import torch
+    from reconstruction_tpu_torch.surface.poisson import _vcycle
+    x = torch.zeros_like(f)
+    for _ in range(cycles):
+        x = _vcycle(x, f, screen, levels, 2, 2)
+    return x
+
+
+PARALLEL_RANKS = 4
+VCYCLE = dict(R=256, levels=3, cycles=8)
+SPLAT_R = 256
+# One GN step at the ba_schur size: the default damping leaves the scale
+# gauge undamped, so the step along it is rounding noise (phase_parallel);
+# at 100 it is damped and the step is the same under any summation order.
+BA_DAMPINGS = (1e-3, 100.0)
+
+
+def _ba_judge(prob, Rt_true, single, sharded) -> dict:
+    """tests/test_parallel.py:72-108's criteria for a sharded GN step
+    (poses, points, cost) against the single-device one: the assembled
+    cost within rtol 1e-5, both post-step costs below 0.01x of it and
+    within 5x of each other, and the points equal within 5e-3 after the
+    scale about camera 0's center."""
+    import importlib
+    import torch
+    tb = importlib.import_module("reconstruction_tpu_torch.ba.bundle_adjust")
+    (p1, x1, c1), (p2, x2, c2) = single, sharded
+    dev = prob.points0.device
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    after1 = float(tb.ba_cost(prob, as_t(p1), as_t(x1), 16))
+    after2 = float(tb.ba_cost(prob, as_t(p2), as_t(x2), 16))
+    R0, t0 = Rt_true[0][:, :3], Rt_true[0][:, 3]
+    C0 = -R0.T @ t0
+    a, b = np.asarray(x2, np.float64) - C0, np.asarray(x1, np.float64) - C0
+    s = float((a * b).sum() / max(float((a * a).sum()), 1e-12))
+    err = float(np.abs(C0 + s * a - np.asarray(x1)).max())
+    c1, c2 = float(c1), float(c2)
+    return dict(cost=c2, ref_cost=c1, cost_ok=abs(c2 - c1) <= 1e-5 * abs(c1),
+                after=after2, ref_after=after1, scale=s, aligned_err=err,
+                ok=(abs(c2 - c1) <= 1e-5 * abs(c1) and after1 < 0.01 * c1
+                    and after2 < 0.01 * c2 and after1 / after2 < 5.0
+                    and after2 / after1 < 5.0 and abs(s - 1.0) < 0.05 and err <= 5e-3))
+
+
+def splat_terms(clouds, box, dev, zeros: bool = False):
+    """The valid points of the pairs' clouds as `distributed_splat` takes
+    them, each normal pointing to its pair's camera: (grid coordinates,
+    weights, values (normal, 1)).  ``zeros``: every point, the invalid
+    ones with weight 0."""
+    import torch
+    gp, w, vals = [], [], []
+    for c, cam in clouds:
+        keep = c.valid.to(dev)
+        if zeros:
+            w.append(keep.float())
+            keep = torch.ones_like(keep)
+        xyz = c.xyz.to(dev)
+        cam = torch.as_tensor(np.asarray(cam, np.float32), device=dev)
+        nrm = cam - xyz
+        nrm = nrm / nrm.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        gp.append((xyz[keep] - torch.as_tensor(box["origin"], device=dev))
+                  / torch.as_tensor(box["spacing"], device=dev))
+        if not zeros:
+            w.append(torch.ones(int(keep.sum()), device=dev))
+        vals.append(torch.cat([nrm[keep], torch.ones_like(w[-1])[:, None]], 1))
+    return torch.cat(gp), torch.cat(w), torch.cat(vals)
+
+
+def splat_bound(gp, w, vals, R: int, extra: int):
+    """Per voxel and channel, 2 * gamma_(n + extra) * sum |term|: the most
+    two float32 sums of the same n terms (the voxel's trilinear splat
+    terms, `surface/poisson._splat3`) can differ, whatever their orders
+    and trees (gamma_k = k u / (1 - k u), u = 2^-24); ``extra`` terms for
+    the partial sums a sharded run adds."""
+    import torch
+    from reconstruction_tpu_torch.surface.poisson import _splat3
+    absum = _splat3(torch.zeros((R, R, R, vals.shape[1]), device=gp.device), gp, w.abs(),
+                    vals.abs())
+    i0 = torch.floor(gp)
+    f = gp - i0
+    i0 = i0.long()
+    count = torch.zeros(R ** 3, dtype=torch.int64, device=gp.device)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                ii = (i0 + torch.tensor([dx, dy, dz], device=gp.device)).clamp(0, R - 1)
+                wq = ((f[:, 0] if dx else 1 - f[:, 0]) * (f[:, 1] if dy else 1 - f[:, 1])
+                      * (f[:, 2] if dz else 1 - f[:, 2])) * w
+                flat = (ii[:, 0] * R + ii[:, 1]) * R + ii[:, 2]
+                count += torch.bincount(flat[wq != 0], minlength=R ** 3)
+    ku = (count.reshape(R, R, R, 1).double() + extra) * 2.0 ** -24
+    return (2.0 * ku / (1.0 - ku) * absum.double()).float()
+
+
+class CommClock:
+    """Host seconds inside the `torch.distributed` calls that `parallel/mesh`
+    makes, the card synchronized before and after each.  The layer counts
+    its collectives' calls and bytes (`COMM`) and never synchronizes, so
+    while this is entered the smoke wraps those four functions in timed
+    ones and puts them back on leaving; what the calls do is unchanged."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast_object_list", "all_gather_object")
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+
+        def timed(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    self.seconds += time.perf_counter() - t0
+            return call
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+        return False
+
+
+def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -> dict:
+    """One of four gloo ranks on cuda:0 (`phase_parallel` (b)): a probe of
+    the layer's collectives on CUDA tensors, then `match_pairs_sharded`
+    over the bench's 4 pairs (one a rank), `refine_tiled` on 4 tiles,
+    `ba_step_sharded` on 4 point blocks at the ba_schur size,
+    `distributed_splat` of each rank's pair cloud at grid 256 and
+    `poisson_vcycle_sharded` on 4 z blocks at 256^3.  Returns digests of
+    what every rank holds, rank 0's arrays for the tolerance checks, and
+    the rank's wall, collective seconds and peak device memory."""
+    import torch
+    import torch.distributed as dist
+    from reconstruction_tpu_torch.ops import ba_coupling as K4
+    from reconstruction_tpu_torch.ops import ncc_sweep as K13
+    from reconstruction_tpu_torch.ops import refine as K2
+    from reconstruction_tpu_torch.parallel.distributed_ba import ba_step_sharded
+    from reconstruction_tpu_torch.parallel.dryrun import dryrun
+    from reconstruction_tpu_torch.parallel.fusion import distributed_splat
+    from reconstruction_tpu_torch.parallel.mesh import COMM, all_reduce_sum, axis_rank, make_mesh
+    from reconstruction_tpu_torch.parallel.poisson_sharded import poisson_vcycle_sharded
+    from reconstruction_tpu_torch.parallel.production import match_pairs_sharded
+    from reconstruction_tpu_torch.parallel.sharded import refine_tiled
+    from reconstruction_tpu_torch.pipeline.reconstruct import PairInput
+    from reconstruction_tpu_torch.stereo.margins import Margins
+    from reconstruction_tpu_torch.surface.poisson import _splat3
+    from reconstruction_tpu_torch.utils.timing import Timer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    out = dict(rank=rank, device=str(dev), backend=dist.get_backend())
+
+    # The layer's four collectives on CUDA tensors (and host objects).
+    probe = {}
+    x = torch.full((4,), float(rank + 1), device=dev)
+    for name, op in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(
+                dist.get_world_size())], x)),
+            ("broadcast", lambda: dist.broadcast(x.clone(), src=0)),
+            ("all_gather_object", lambda: dist.all_gather_object(
+                [None] * dist.get_world_size(), {"rank": rank}))):
+        try:
+            op()
+            torch.cuda.synchronize()
+            probe[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - reported, then the run fails
+            probe[name] = f"{type(e).__name__}: {e}"[:300]
+    out["probe"] = probe
+    if any(v != "ok" for v in probe.values()):
+        return out
+
+    pmesh = make_mesh(frame=1, pair=PARALLEL_RANKS, tile=1, device="cuda")
+    tmesh = make_mesh(frame=1, pair=1, tile=PARALLEL_RANKS, device="cuda")
+    views = [v.astype(np.float32) for v in views]
+    masks = [m.astype(np.float32) for m in masks_u8]
+    pairs = [PairInput(image0=views[a], image1=views[b], mask0=masks[a], mask1=masks[b],
+                       K0=cams_K[a], Rt0=cams_Rt[a], K1=cams_K[b], Rt1=cams_Rt[b])
+             for a, b in cfg.cam_pairs]
+    wrappers = dict(ncc_sweep=K13.ncc_sweep, cost_volume=K13.cost_volume,
+                    refine_sweeps_fused=K2.refine_sweeps_fused, ba_coupling=K4.ba_coupling)
+    steps, launches, comm, seconds = {}, {}, {}, {}
+
+    def step(name, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        COMM.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CommClock() as clock:
+            res = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: w.launches for k, w in wrappers.items()}
+        comm[name] = dict(COMM.as_dict(), seconds=clock.seconds)
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    split = Timer(dev)
+    rs = step("match_pairs_sharded", lambda: match_pairs_sharded(cfg, pairs, pmesh, timer=split))
+    out["pairs"] = [_pair_digests(r) for r in rs]
+    out["pairs_split_s"] = dict(split.spans)
+
+    disp = torch.from_numpy(refine_in["disp"]).to(dev)
+    L = torch.from_numpy(refine_in["L"].astype(np.float32)).to(dev)
+    R = torch.from_numpy(refine_in["R"].astype(np.float32)).to(dev)
+    m = Margins(*[torch.tensor(v, dtype=torch.int32, device=dev) for v in refine_in["m"]])
+    got = step("refine_tiled", lambda: refine_tiled(
+        tmesh, disp, L, R, m, refine_in["iterations"], refine_in["ws"],
+        s_cap=refine_in["s_cap"], band=refine_in["band"]))
+    out["refine"] = _digest(got)
+
+    prob, _, _ = _ba_problem(dev)
+    out["ba"] = {}
+    for damping in BA_DAMPINGS:
+        poses, points, cost = step(f"ba_step_sharded@{damping:g}", lambda: ba_step_sharded(
+            pmesh, prob, torch.zeros((16, 6), device=dev), prob.points0, 16, damping=damping))
+        out["ba"][damping] = dict(digest=_digest(points), cost=float(cost))
+        if rank == 0:
+            out["ba"][damping].update(poses=poses.cpu().numpy(), points=points.cpu().numpy())
+
+    mine = rs[axis_rank(pmesh, "pair")]
+    xyz = mine.cloud.xyz.to(dev)
+    cam = torch.as_tensor(np.asarray(mine.rectification.T_final, np.float32), device=dev)
+    nrm = cam - xyz
+    nrm = nrm / nrm.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    origin = torch.as_tensor(splat_box["origin"], device=dev)
+    spacing = torch.as_tensor(splat_box["spacing"], device=dev)
+    V, D = step("distributed_splat", lambda: distributed_splat(
+        pmesh, xyz, nrm, mine.cloud.valid.to(dev), origin, spacing, splat_box["R"]))
+    out["splat"] = dict(digest=_digest(torch.cat([V, D[..., None]], -1)))
+    if rank == 0:
+        out["splat"].update(V=V.cpu().numpy(), D=D.cpu().numpy())
+    # Uncounted: this rank's splat with its points of weight 0 left in
+    # (`distributed_splat` leaves them out; they add exact zeros), against
+    # the splat of its weighted points alone, and the four ranks' sum of it.
+    Rs = splat_box["R"]
+    wz = mine.cloud.valid.to(dev).float()
+    keep = wz != 0
+    gpz = (xyz - origin) / spacing
+    valsz = torch.cat([nrm, torch.ones_like(wz)[:, None]], 1)
+    alone = _splat3(torch.zeros((Rs,) * 3 + (4,), device=dev), gpz[keep], wz[keep], valsz[keep])
+    zeros = _splat3(torch.zeros((Rs,) * 3 + (4,), device=dev), gpz, wz, valsz)
+    out["splat_zeros"] = dict(points=int(keep.sum()), zero_points=int((~keep).sum()),
+                              local_equal=bool(torch.equal(alone, zeros)),
+                              local_max_diff=float((alone - zeros).abs().max()))
+    del alone
+    all_reduce_sum(zeros, pmesh.get_group("pair"))
+    if rank == 0:
+        out["splat_zeros"]["grid"] = zeros.cpu().numpy()
+    del zeros
+
+    f, screen = vcycle_inputs(VCYCLE["R"], dev)
+    chi = step("poisson_vcycle_sharded", lambda: poisson_vcycle_sharded(
+        tmesh, f, screen, levels=VCYCLE["levels"], cycles=VCYCLE["cycles"]))
+    out["vcycle"] = dict(digest=_digest(chi))
+    if rank == 0:
+        out["vcycle"]["chi"] = chi.cpu().numpy()
+    out["dryrun"] = step("dryrun", lambda: dryrun("cuda"))
+
+    out.update(wall_s=time.perf_counter() - t_all, seconds=seconds, launches=launches,
+               comm=comm, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    return out
+
+
+def phase_parallel(card: str, seq=None, scene=None) -> dict:
+    """The multi-device layer (`parallel/`) on the card, at the bench
+    configuration (``scene`` and ``seq``: `phase_reconstruct`'s views and
+    its sequential run of them; made here when the phase runs alone).
+    (a) One rank over NCCL in this process: `reconstruct(mesh=...)` equal
+        to the sequential run (vertices, faces, colors), `ba_step_sharded`
+        at 16 cams / 65,536 points / 8 obs equal to `ba_step`,
+        `refine_tiled` at 1280x1920 with 120 sweeps equal to
+        `disparity_refine(recenter_every=0)`, `poisson_vcycle_sharded` at
+        256^3 (levels 3, cycles 8) equal to the dense `_vcycle`, all bit
+        for bit.
+    (b) Four gloo ranks on cuda:0 (`parallel_rank`): the pairs bit-equal to
+        the sequential `match_pair`s, with K1/K3/K2 launched on every rank;
+        the tile refine bit-equal; BA within the JAX package's criteria
+        with K4 on every rank; the splat within 1e-4 and the multigrid
+        within 1e-6 of their single-device versions.
+    (c) `python3 -m reconstruction_tpu_torch config.yml --sharded` on
+        `phase_cli`'s scene: its PLY equals the unsharded CLI's byte for
+        byte."""
+    import importlib
+    import torch
+    import torch.distributed as dist
+    import chip_smoke
+    from reconstruction_tpu_torch.parallel.distributed_ba import ba_step_sharded
+    from reconstruction_tpu_torch.parallel.dryrun import dryrun
+    from reconstruction_tpu_torch.parallel.launch import run_local
+    from reconstruction_tpu_torch.parallel.mesh import COMM, make_mesh
+    from reconstruction_tpu_torch.parallel.multihost import initialize_distributed
+    from reconstruction_tpu_torch.parallel.poisson_sharded import poisson_vcycle_sharded
+    from reconstruction_tpu_torch.parallel.sharded import refine_tiled
+    from reconstruction_tpu_torch.pipeline.reconstruct import PairInput, reconstruct
+    from reconstruction_tpu_torch.stereo.refine import disparity_refine
+    from reconstruction_tpu_torch.surface.poisson import _splat3
+    tb = importlib.import_module("reconstruction_tpu_torch.ba.bundle_adjust")
+
+    dev = torch.device("cuda")
+    cfg = bench_config()
+    cams, imgs, masks = scene or bench_scene(8, 42.0, cfg.finest_size)
+    pairs = [PairInput(image0=imgs[a], image1=imgs[b], mask0=masks[a], mask1=masks[b],
+                       K0=np.asarray(cams[a].K), Rt0=np.asarray(cams[a].Rt),
+                       K1=np.asarray(cams[b].K), Rt1=np.asarray(cams[b].Rt))
+             for a, b in cfg.cam_pairs]
+    if seq is None:
+        seq = reconstruct(cfg, pairs, device="cuda")
+    res0 = seq.pair_results[0]
+    refine_in = dict(disp=res0.disparity.cpu().numpy(), L=res0.rect_images[0].cpu().numpy(),
+                     R=res0.rect_images[1].cpu().numpy(),
+                     m=[int(v) for v in res0.margins0], ws=cfg.stereo.refine_ws,
+                     iterations=cfg.refine_iterations(cfg.pyramid_levels - 1),
+                     s_cap=128, band=64)
+    out = {}
+
+    # (a) one rank over NCCL
+    initialize_distributed(device="cuda")
+    try:
+        mesh = make_mesh(frame=1, pair=1, tile=1, device="cuda")
+        log(f"parallel (a): one rank, backend {dist.get_backend()}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
+        COMM.reset()
+        torch.cuda.reset_peak_memory_stats()
+        rec, wall, launches = counted(lambda: reconstruct(cfg, pairs, mesh=mesh, device="cuda"))
+        same = (np.array_equal(rec.vertices, seq.vertices)
+                and np.array_equal(rec.faces, seq.faces)
+                and np.array_equal(rec.colors, seq.colors))
+        split = next(r for r in rec.stats.records if r["stage"] == "stereo_sharded")
+        a = dict(reconstruct=dict(wall_s=wall, equal=same, launches=launches,
+                                  spans={k: round(v, 4) for k, v in rec.timer.spans.items()},
+                                  split=split, comm=COMM.as_dict(),
+                                  peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30))
+        log(f"parallel (a) reconstruct(mesh=...): {wall:.2f} s wall ({card}); equal to the "
+            f"sequential run (vertices, faces, colors)={same}; spans {a['reconstruct']['spans']}; "
+            f"local/gather {split}; collectives {COMM.as_dict()}; launches {launches}; peak "
+            f"{a['reconstruct']['peak_mem_gb']:.2f} GiB")
+        if not (same and "stereo_sharded" in rec.timer.spans
+                and all(n > 0 for n in launches.values())):
+            raise AssertionError("reconstruct(mesh=...) on one rank differs from reconstruct")
+        del rec
+
+        prob, Rt_true, pts_true = _ba_problem(dev)
+        zeros = torch.zeros((16, 6), device=dev)
+        p1, x1, c1 = tb.ba_step(prob, zeros, prob.points0, 16)
+        (p2, x2, c2), ba_s = _timed(lambda: ba_step_sharded(mesh, prob, zeros, prob.points0, 16))
+        ba_eq = torch.equal(p1, p2) and torch.equal(x1, x2) and torch.equal(c1, c2)
+
+        disp = torch.from_numpy(refine_in["disp"]).to(dev)
+        L, R = (torch.from_numpy(refine_in[k].astype(np.float32)).to(dev) for k in ("L", "R"))
+        m = res0.margins0
+        it = refine_in["iterations"]
+        ref_refine, ref_s = _timed(lambda: disparity_refine(
+            disp, L, R, m, it, refine_in["ws"], s_cap=128, band=64, recenter_every=0))
+        got, tiled_s = _timed(lambda: refine_tiled(mesh, disp, L, R, m, it, refine_in["ws"],
+                                                   s_cap=128, band=64))
+        refine_eq = torch.equal(got, ref_refine)
+
+        f, screen = vcycle_inputs(VCYCLE["R"], dev)
+        chi_ref, dense_s = _timed(lambda: dense_vcycle(f, screen, VCYCLE["levels"],
+                                                       VCYCLE["cycles"]))
+        chi, vc_s = _timed(lambda: poisson_vcycle_sharded(
+            mesh, f, screen, levels=VCYCLE["levels"], cycles=VCYCLE["cycles"]))
+        vc_eq = torch.equal(chi, chi_ref)
+        a.update(ba=dict(equal=ba_eq, cost=float(c1), sharded_s=ba_s),
+                 refine=dict(equal=refine_eq, sweeps=it, tiled_s=tiled_s, unsharded_s=ref_s),
+                 vcycle=dict(equal=vc_eq, sharded_s=vc_s, dense_s=dense_s))
+        log(f"parallel (a) one NCCL rank, bit for bit: ba_step_sharded == ba_step {ba_eq} "
+            f"({ba_s * 1e3:.1f} ms); refine_tiled == disparity_refine(recenter_every=0) at "
+            f"{L.shape[0]}x{L.shape[1]}, {it} sweeps {refine_eq} ({tiled_s * 1e3:.1f} against "
+            f"{ref_s * 1e3:.1f} ms); poisson_vcycle_sharded == _vcycle at {VCYCLE} {vc_eq} "
+            f"({vc_s:.3f} against {dense_s:.3f} s) ({card})")
+        if not (ba_eq and refine_eq and vc_eq):
+            raise AssertionError("a sharded function on one rank differs from its "
+                                 "single-device counterpart")
+        dry, dry_s = _timed(lambda: dryrun("cuda"))
+        log(f"parallel (a) dryrun over one rank in {dry_s:.2f} s: {dry}")
+        a["dryrun"] = dict(dry, seconds=dry_s)
+        ba_single = {d: tuple(v.cpu().numpy() if torch.is_tensor(v) and v.dim() else float(v)
+                              for v in tb.ba_step(prob, zeros, prob.points0, 16, damping=d))
+                     for d in BA_DAMPINGS}
+        # The same single-device step over the points in other orders (a
+        # pure reassociation of its sums), at the default damping.
+        ba_perm = []
+        for seed in range(1, 5):
+            perm = torch.randperm(prob.points0.shape[0],
+                                  generator=torch.Generator().manual_seed(seed)).to(dev)
+            pprob = tb.BAProblem(prob.K, prob.Rt0, *[t[perm] for t in prob[2:]])
+            pp, xp, cp = tb.ba_step(pprob, zeros, pprob.points0, 16)
+            xs = torch.empty_like(xp)
+            xs[perm] = xp
+            ba_perm.append(_ba_judge(prob, Rt_true, ba_single[BA_DAMPINGS[0]],
+                                     (pp.cpu().numpy(), xs.cpu().numpy(), float(cp))))
+        out["a"] = a
+    finally:
+        dist.destroy_process_group()
+
+    # (b) four gloo ranks on cuda:0
+    clouds = [r.cloud for r in seq.pair_results]
+    allv = torch.cat([c.valid for c in clouds])
+    allx = torch.cat([c.xyz for c in clouds])
+    lo = allx[allv].amin(0) - 0.05
+    hi = allx[allv].amax(0) + 0.05
+    box = dict(origin=lo.cpu().numpy(),
+               spacing=np.float32(float((hi - lo).max()) / (SPLAT_R - 1)), R=SPLAT_R)
+    views_u8 = [im.astype(np.uint8) for im in imgs]
+    masks_u8 = [mk.astype(np.uint8) for mk in masks]
+    if not all(np.array_equal(u.astype(np.float32), v) for u, v in zip(views_u8 + masks_u8,
+                                                                      imgs + masks)):
+        raise AssertionError("the bench views do not round-trip through uint8")
+    (ranks, world_s) = _timed(lambda: run_local(
+        chip_smoke.parallel_rank, PARALLEL_RANKS, "cuda", cfg, views_u8, masks_u8,
+        [np.asarray(c.K) for c in cams], [np.asarray(c.Rt) for c in cams], refine_in, box,
+        backend="gloo", timeout=900))
+    for r in ranks:
+        log(f"parallel (b) rank {r['rank']} on {r['device']} ({r['backend']}): probe "
+            f"{r['probe']}")
+    if any(v != "ok" for r in ranks for v in r["probe"].values()):
+        raise AssertionError("a collective refused CUDA tensors on gloo")
+    want = [_pair_digests(r) for r in seq.pair_results]
+    pairs_eq = all(r["pairs"] == want for r in ranks)
+    refine_eq = all(r["refine"] == _digest(ref_refine) for r in ranks)
+    same_ba = all(len({r["ba"][d]["digest"] for r in ranks}) == 1 for d in BA_DAMPINGS)
+    same_splat = len({r["splat"]["digest"] for r in ranks}) == 1
+    same_chi = len({r["vcycle"]["digest"] for r in ranks}) == 1
+    r0 = ranks[0]
+
+    # BA: the JAX package's criteria (tests/test_parallel.py:72-108) at
+    # both dampings; at the default one only the assembled cost is held
+    # (the step along the free scale gauge is rounding noise there: the
+    # single-device step over permuted points, `ba_perm`, shows it).
+    ba = {d: _ba_judge(prob, Rt_true, ba_single[d],
+                       (r0["ba"][d]["poses"], r0["ba"][d]["points"], r0["ba"][d]["cost"]))
+          for d in BA_DAMPINGS}
+    ba_ok = ba[BA_DAMPINGS[0]]["cost_ok"] and ba[BA_DAMPINGS[1]]["ok"]
+
+    # Splat: the single-device splat of the four pairs' clouds, and the
+    # float32 bound on two orders of the same sums.
+    gp, w, vals = splat_terms([(r.cloud, r.rectification.T_final) for r in seq.pair_results],
+                              box, dev)
+    grid, splat_s = _timed(lambda: _splat3(torch.zeros((SPLAT_R,) * 3 + (4,), device=dev),
+                                           gp, w, vals))
+    bnd = splat_bound(gp, w, vals, SPLAT_R, PARALLEL_RANKS)
+    got = torch.cat([torch.from_numpy(r0["splat"]["V"]), torch.from_numpy(r0["splat"]["D"])[..., None]],
+                    -1).to(dev)
+    diff = (got - grid).abs()
+    splat = dict(max_err=float(diff.max()), max_abs=float(grid.abs().max()),
+                 max_err_over_bound=float((diff / bnd.clamp_min(1e-30)).max()),
+                 within_bound=bool((diff <= bnd).all()), jax_atol_1e4=bool(diff.max() <= 1e-4),
+                 points=int(len(w)), single_device_s=splat_s)
+    # Not gated: the same comparison for the four ranks' splat with their
+    # points of weight 0 left in, and the one-device splat of all the
+    # pairs' points, weight 0 included, against that of the weighted ones.
+    zs = [r["splat_zeros"] for r in ranks]
+    gz = torch.from_numpy(r0["splat_zeros"].pop("grid")).to(dev)
+    dz = (gz - grid).abs()
+    gp0, w0, vals0 = splat_terms([(r.cloud, r.rectification.T_final)
+                                  for r in seq.pair_results], box, dev, zeros=True)
+    one = _splat3(torch.zeros((SPLAT_R,) * 3 + (4,), device=dev), gp0, w0, vals0)
+    splat["zeros_kept"] = dict(
+        per_rank=[{k: v for k, v in z.items() if k != "grid"} for z in zs],
+        four_rank_max_err=float(dz.max()),
+        four_rank_max_err_over_bound=float((dz / bnd.clamp_min(1e-30)).max()),
+        one_device_equal=bool(torch.equal(one, grid)),
+        one_device_max_diff=float((one - grid).abs().max()), one_device_points=int(len(w0)))
+    del gz, dz, gp0, w0, vals0, one
+    splat_err = splat["max_err"]
+    del grid, bnd, got, diff
+    chi_err = float(np.abs(r0["vcycle"]["chi"] - chi_ref.cpu().numpy()).max())
+    per_rank = [dict(rank=r["rank"], wall_s=r["wall_s"], seconds=r["seconds"], comm=r["comm"],
+                     launches=r["launches"], peak_mem_gb=r["peak_mem_gb"],
+                     pairs_split_s=r["pairs_split_s"]) for r in ranks]
+    for r in per_rank:
+        log(f"parallel (b) rank {r['rank']}: wall {r['wall_s']:.2f} s, by step "
+            f"{ {k: round(v, 3) for k, v in r['seconds'].items()} }, match_pairs_sharded "
+            f"local/gather {r['pairs_split_s']}, collectives "
+            f"{ {k: (v['calls'], round(v['seconds'], 3), v['bytes']) for k, v in r['comm'].items()} }"
+            f", peak {r['peak_mem_gb']:.2f} GiB, launches {r['launches']} ({card})")
+    dry = [r["dryrun"] for r in ranks]
+    dry_ok = (all(d == dry[0] for d in dry) and dry[0]["mesh"] == dict(pair=2, tile=2)
+              and dry[0]["production_verts"] > 0 and dry[0]["chi_finite"])
+    log(f"parallel (b) dryrun over the four ranks (pair 2 x tile 2, then 4 z tiles): every "
+        f"rank the same summary {all(d == dry[0] for d in dry)}: {dry[0]}")
+    path_ok = all(r["launches"]["match_pairs_sharded"][k] > 0 for r in per_rank
+                  for k in ("ncc_sweep", "cost_volume", "refine_sweeps_fused"))
+    k4_ok = all(r["launches"][f"ba_step_sharded@{d:g}"]["ba_coupling"] > 0 for r in per_rank
+                for d in BA_DAMPINGS)
+    refine_k2 = all(r["launches"]["refine_tiled"]["refine_sweeps_fused"] > 0
+                    and r["launches"]["refine_tiled"]["cost_volume"] > 0 for r in per_rank)
+    fmt = lambda j: (f"cost {j['cost']:.7g} against {j['ref_cost']:.7g}, after {j['after']:.5g} "
+                     f"against {j['ref_after']:.5g}, scale {j['scale']:.4f}, aligned point "
+                     f"error {j['aligned_err']:.3g}, JAX criteria {j['ok']}")
+    log(f"parallel (b) BA one GN step at 16 cams / 65,536 points / 8 obs, pair 4 against "
+        f"ba_step: damping {BA_DAMPINGS[0]:g}: {fmt(ba[BA_DAMPINGS[0]])}; the single-device "
+        f"step over the points in 4 other orders: after "
+        f"{[round(j['after'], 1) for j in ba_perm]}, JAX criteria {[j['ok'] for j in ba_perm]}; "
+        f"damping {BA_DAMPINGS[1]:g}: {fmt(ba[BA_DAMPINGS[1]])}")
+    log(f"parallel (b) splat of {splat['points']} points at {SPLAT_R}^3 (one device, one "
+        f"process: {splat_s:.3f} s): max |err| "
+        f"{splat['max_err']:.3g} at values up to {splat['max_abs']:.4g}, at most "
+        f"{splat['max_err_over_bound']:.3g} of the float32 reassociation bound, within it "
+        f"{splat['within_bound']}; within the JAX test's atol 1e-4 {splat['jax_atol_1e4']}")
+    zk = splat["zeros_kept"]
+    log(f"parallel (b) splat with the points of weight 0 left in (not gated): per rank, "
+        f"its own splat equal to that of its weighted points alone "
+        f"{[z['local_equal'] for z in zk['per_rank']]} (max |diff| "
+        f"{[z['local_max_diff'] for z in zk['per_rank']]}; weighted/zero points "
+        f"{[(z['points'], z['zero_points']) for z in zk['per_rank']]}); the four ranks' sum "
+        f"against the one-device splat: max |err| {zk['four_rank_max_err']:.3g}, "
+        f"{zk['four_rank_max_err_over_bound']:.3g} of the bound; the one-device splat of all "
+        f"{zk['one_device_points']} points equal to that of the weighted ones "
+        f"{zk['one_device_equal']} (max |diff| {zk['one_device_max_diff']:.3g})")
+    log(f"parallel (b) four gloo ranks on one card, {world_s:.1f} s for the world: pairs "
+        f"bit-equal to match_pair on every rank {pairs_eq}; refine_tiled (tile 4) bit-equal "
+        f"{refine_eq}; BA {ba_ok}; multigrid max |err| {chi_err:.3g} (<= 1e-6); every rank "
+        f"the same BA/splat/chi {same_ba}/{same_splat}/{same_chi}; K1/K3/K2 on every rank "
+        f"{path_ok}, K3/K2 in every tile {refine_k2}, K4 on every rank {k4_ok}")
+    if not (pairs_eq and refine_eq and ba_ok and splat["jax_atol_1e4"] and dry_ok
+            and splat["within_bound"] and chi_err <= 1e-6
+            and same_ba and same_splat and same_chi and path_ok and k4_ok and refine_k2):
+        raise AssertionError("the four-rank sharded run is outside its criteria")
+    out["b"] = dict(world_s=world_s, pairs_equal=pairs_eq, refine_equal=refine_eq,
+                    ba={f"{d:g}": v for d, v in ba.items()}, ba_permuted_single=ba_perm,
+                    splat=splat, chi_err=chi_err, per_rank=per_rank, probe=ranks[0]["probe"],
+                    dryrun=dry[0])
+
+    # (c) the CLI with --sharded against the unsharded CLI's PLY
+    root = os.path.abspath(os.path.join(SCRATCH, "cli"))
+    cli_ply = os.path.join(root, "cli.ply")
+    if not os.path.exists(cli_ply):
+        phase_cli(card)
+    from reconstruction_tpu_torch.io.opencv_yaml import load_opencv_yaml, save_opencv_yaml
+    conf = load_opencv_yaml(os.path.join(root, "config.yml"))
+    conf["outfilename"] = os.path.join(root, "sharded.ply")
+    conf["camID"] = np.asarray(conf["camID"], np.int32)
+    path = os.path.join(root, "config_sharded.yml")
+    save_opencv_yaml(path, conf)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "reconstruction_tpu_torch", path, "--sharded"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "stereo_sharded" not in proc.stdout:
+        raise AssertionError(f"the --sharded CLI failed: {proc.stderr[-3000:]}")
+    with open(cli_ply, "rb") as fa, open(conf["outfilename"], "rb") as fb:
+        cli_same = fa.read() == fb.read()
+    log(f"parallel (c) python3 -m reconstruction_tpu_torch config.yml --sharded: exit 0 in "
+        f"{sub_s:.2f} s ({card}); PLY bytes equal to the unsharded CLI's={cli_same}; its "
+        f"report:\n" + "\n".join("  " + line for line in proc.stdout.splitlines()))
+    if not cli_same:
+        raise AssertionError("the --sharded CLI's PLY differs from the unsharded one")
+    out["c"] = dict(subprocess_s=sub_s, same_bytes=cli_same, stdout=proc.stdout)
+    return out
 
 
 # The video's rig angle error, degrees, with closures and of the chain
@@ -1708,7 +2363,8 @@ def main() -> int:
             "ba": lambda: phase_ba(card), "front": lambda: phase_front_end(card),
             "reconstruct": lambda: phase_reconstruct(card), "cli": lambda: phase_cli(card),
             "video": lambda: phase_video(card),
-            "satellites": lambda: phase_satellites(card)}
+            "satellites": lambda: phase_satellites(card),
+            "parallel": lambda: phase_parallel(card)}
     if sys.argv[1:]:
         for name in sys.argv[1:]:
             only[name]()
@@ -1722,6 +2378,7 @@ def main() -> int:
     front = phase_front_end(card)
     recon = phase_reconstruct(card)
     cli = phase_cli(card)
+    par = phase_parallel(card, seq=recon.pop("rec"), scene=recon.pop("scene"))
     vid = phase_video(card)
     sat = phase_satellites(card)
 
@@ -1752,7 +2409,8 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=rows, kernel_times=kern, slice=sl,
                        small=small, mxu_path=mxu, ba=ba, front_end=front,
-                       reconstruct=recon, cli=cli, video=vid, satellites=sat,
+                       reconstruct=recon, cli=cli, parallel=par, video=vid,
+                       satellites=sat,
                        build_log=_build.build_log), f, indent=1, default=str)
     log(json.dumps({"kernels": rows}))
     log(card)

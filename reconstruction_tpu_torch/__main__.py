@@ -8,7 +8,13 @@ Usage mirrors the reference (`reconstruction/main.cpp:10-13`):
     python -m reconstruction_tpu_torch masks <indir> <outdir>  # segmentation
 
 Every mode runs on the card; ``main(argv, device="cpu")`` runs it on the
-CPU instead.
+CPU instead.  ``config.yml --sharded`` splits the pairs' stereo over the
+ranks of the process group (`parallel/`): a plain run is a world of one,
+and on a host with N cards
+
+    torchrun --nproc_per_node=N -m reconstruction_tpu_torch config.yml --sharded
+
+runs N ranks, one a card, over NCCL.
 """
 
 from __future__ import annotations
@@ -24,10 +30,6 @@ def main(argv, *, device="cuda"):
               "       python -m reconstruction_tpu_torch kinect filelist.yml\n"
               "       python -m reconstruction_tpu_torch masks <indir> <outdir>")
         return -1
-    if "--sharded" in argv[1:]:
-        raise NotImplementedError(
-            "--sharded (the pair-sharded front end over several devices) "
-            "belongs to the port's multi-device slice, which is not ported yet")
     start = time.time()
     if argv[1] == "batch":
         from reconstruction_tpu_torch.pipeline.batch import run_batch
@@ -47,7 +49,22 @@ def main(argv, *, device="cuda"):
             # clean failure like the reference (`CReconstruction.cpp:8-14`)
             print(f"Can't open file: {e.filename}")
             return -1
-        res = reconstruct(cfg, pairs, output_path=cfg.outfilename, device=device)
+        mesh = None
+        if "--sharded" in argv[2:]:
+            # Pair-sharded stereo over every rank of the world (replaces
+            # the reference's sequential pair loop, `CStereoMatching.cpp:17`).
+            import torch.distributed as dist
+            from reconstruction_tpu_torch.parallel.mesh import make_mesh
+            from reconstruction_tpu_torch.parallel.multihost import initialize_distributed
+            joined = dist.is_initialized()
+            initialize_distributed(device=device)
+            mesh = make_mesh(frame=1, tile=1, device=device)
+        try:
+            res = reconstruct(cfg, pairs, output_path=cfg.outfilename, mesh=mesh,
+                              device=device)
+        finally:
+            if mesh is not None and not joined:
+                dist.destroy_process_group()
         print(res.timer.report())
     print(f"total time: {time.time() - start:.3f} s")
     return 0

@@ -366,6 +366,15 @@ def ba_step(
         dp = torch.stack([Hinv[3 * i] * b_p[0] + Hinv[3 * i + 1] * b_p[1]
                           + Hinv[3 * i + 2] * b_p[2] for i in range(3)], dim=1)
         return poses, points + dp, cost
+    dc = camera_step(S, b, C, damping, fix_gauge)
+    return poses + dc, points + point_step(W_t, hpp, b_p, dc), cost
+
+
+def camera_step(S: torch.Tensor, b: torch.Tensor, num_cameras: int,
+                damping: float, fix_gauge: bool) -> torch.Tensor:
+    """The damped reduced camera solve, camera 0 pinned with fix_gauge:
+    (C, 6) pose update."""
+    C = num_cameras
     dev = S.device
     S = S + damping * torch.eye(C * 6, dtype=S.dtype, device=dev)
     if fix_gauge:
@@ -373,17 +382,19 @@ def ba_step(
         S = torch.where(mask[:, None] & mask[None, :], S, torch.zeros_like(S))
         S = S + torch.diag((~mask).to(S.dtype))
         b = torch.where(mask, b, torch.zeros_like(b))
-    dc = torch.linalg.solve(S, b).reshape(C, 6)
+    return torch.linalg.solve(S, b).reshape(C, 6)
 
-    # Back-substitute the points: Hpp dp = b_p - W^T dc (summed over cameras).
+
+def point_step(W_t: torch.Tensor, hpp, b_p, dc: torch.Tensor) -> torch.Tensor:
+    """Back-substitute the points: Hpp dp = b_p - W^T dc (summed over
+    cameras); (M, 3) point update."""
     rhs = []
     for k in range(3):
         Wk = W_t[[i * 3 + k for i in range(6)]]                 # (6, C, M)
         rhs.append(b_p[k] - (Wk * dc.T[:, :, None]).sum((0, 1)))
     Hinv = _sym3_inv_comps(hpp)
-    dp = torch.stack([Hinv[3 * i] * rhs[0] + Hinv[3 * i + 1] * rhs[1]
-                      + Hinv[3 * i + 2] * rhs[2] for i in range(3)], dim=1)
-    return poses + dc, points + dp, cost
+    return torch.stack([Hinv[3 * i] * rhs[0] + Hinv[3 * i + 1] * rhs[1]
+                        + Hinv[3 * i + 2] * rhs[2] for i in range(3)], dim=1)
 
 
 def ba_cost(problem: BAProblem, poses: torch.Tensor, points: torch.Tensor,

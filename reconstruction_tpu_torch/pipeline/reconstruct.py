@@ -11,8 +11,9 @@ the reference's `main.cpp` + `CStereoMatching::MatchAllLayer` +
 
 Everything image- or cloud-sized runs on ``device`` (the card unless the
 caller asks for the CPU); marching tetrahedra and the mesh cleanup run on
-the host.  The pairs run one after the other; each pair's cloud comes to
-the host once, for the grid geometry, the stats and the fused cloud.
+the host.  The pairs run one after the other, or split over the ranks of
+a device mesh (``mesh``); each pair's cloud comes to the host once, for
+the grid geometry, the stats and the fused cloud.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from reconstruction_tpu_torch.cloud.backend import resolve_backend
 from reconstruction_tpu_torch.cloud.dedup import build_dedup_inputs, cross_view_dedup
@@ -133,6 +135,7 @@ def reconstruct(
     output_path: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
     artifact_dir: Optional[str] = None,
+    mesh=None,
     *,
     device="cuda",
 ) -> Reconstruction:
@@ -144,10 +147,24 @@ def reconstruct(
     views <i>_<camID>.jpg and the color_<i>_{0,1}.ply scan meshes
     (`CCloudOptimization.cpp:127-143`).  checkpoint_dir: per-pair clouds
     and projection context are stored there and restored by a later run.
-    The reference's ``mesh`` argument (its pair-sharded front end) has no
-    counterpart yet."""
+
+    mesh: optional `parallel/mesh.make_mesh` mesh with a `pair` axis, on
+    every rank of its world.  The pairs without a checkpoint then run
+    split over the pair axis (`parallel/production.match_pairs_sharded`,
+    the "stereo_sharded" span), every rank gets all their results, and
+    the rest of the pipeline runs unchanged on every rank, so every rank
+    returns the same Reconstruction; only rank 0 writes files.  ``device``
+    must be of the mesh's device type (this rank's card for "cuda")."""
     dev = torch.device(device)
-    if cfg.isoutput and artifact_dir is None:
+    writer = True
+    if mesh is not None:
+        if mesh.device_type != dev.type:
+            raise ValueError(f"reconstruct: the mesh is on {mesh.device_type!r} but "
+                             f"device is {device!r}")
+        writer = dist.get_rank() == 0
+    if not writer:
+        output_path = artifact_dir = None
+    if cfg.isoutput and artifact_dir is None and writer:
         artifact_dir = "tmp"
     if cfg.isoutput and artifact_dir:
         # Fail before the first pair, not after all their stereo: the
@@ -192,9 +209,24 @@ def reconstruct(
     all_nrm: List[np.ndarray] = []
     all_col: List[np.ndarray] = []
     pair_results: List[Optional[PairResult]] = []
+    sharded: Dict[int, PairResult] = {}
+    if mesh is not None and pairs:
+        from reconstruction_tpu_torch.parallel.mesh import broadcast_objects
+        from reconstruction_tpu_torch.parallel.production import (
+            match_pairs_sharded, move_result)
+        todo = [pi for pi in range(len(pairs))
+                if not (store and store.has("pair_cloud", pi))]
+        todo = broadcast_objects([todo])[0]      # rank 0's checkpoints decide
+        if todo:
+            split = Timer(dev)
+            with timer.span("stereo_sharded"):
+                rs = match_pairs_sharded(cfg, [pairs[pi] for pi in todo], mesh, timer=split)
+                sharded = {pi: move_result(r, dev) for pi, r in zip(todo, rs)}
+            stats.add("stereo_sharded", pairs=len(todo),
+                      **{f"{k}_s": round(v, 4) for k, v in split.spans.items()})
     for pi, pin in enumerate(pairs):
         log.info("pair %d/%d: stereo matching", pi + 1, len(pairs))
-        cached = store.load("pair_cloud", pi) if store else None
+        cached = store.load("pair_cloud", pi) if store and pi not in sharded else None
         if cached is not None:
             all_xyz.append(cached["xyz"])
             all_nrm.append(cached["nrm"])
@@ -205,9 +237,12 @@ def reconstruct(
                             "restored pair cannot feed texture or dedup", pi)
             pair_results.append(restored)
             continue
-        with timer.span(f"pair{pi}/stereo"):
-            res = match_pair(cfg, pin.image0, pin.image1, pin.mask0, pin.mask1,
-                             pin.K0, pin.Rt0, pin.K1, pin.Rt1, device=dev)
+        if pi in sharded:
+            res = sharded.pop(pi)
+        else:
+            with timer.span(f"pair{pi}/stereo"):
+                res = match_pair(cfg, pin.image0, pin.image1, pin.mask0, pin.mask1,
+                                 pin.K0, pin.Rt0, pin.K1, pin.Rt1, device=dev)
         with timer.span(f"pair{pi}/filter"):
             out = filter_pair(res)
         xyz, nrm, col = out["xyz"], out["nrm"], out["col"]
@@ -232,7 +267,7 @@ def reconstruct(
             # (`CCloudOptimization.cpp:125-143`).
             pair_scan_mesh(cfg, xyz, nrm, pi, rect.P1_world, rect.P2_world,
                            img0, img1, out_dir=artifact_dir, device=dev)
-        if store:
+        if store and writer:
             # The projection context texture and dedup read, so that a
             # resumed run textures and dedups like a fresh one.
             store.save("pair_cloud", pi, xyz=xyz, nrm=nrm, col=col,

@@ -61,16 +61,24 @@ def _banded_cost_volume(
     slot-major, the reference's volume with its last two axes swapped;
     base (H,) int32)."""
     H, W = disp.shape
-    L, R = _centered(imgL), _centered(imgR)
     base_b, lo_b, hi_b = _band_ranges(disp.float(), s_cap, band, drift)
-    momL = ncc_moments(L, 1)
-    momR = ncc_moments(R, 1)
-    cv = cost_volume(L, R, (momL.n * momL.mean).contiguous(),
-                     momL.inv_norm.contiguous(), momR.mean.contiguous(),
-                     momR.inv_norm.contiguous(), base_b.contiguous(),
-                     lo_b.contiguous(), hi_b.contiguous(), s_cap, band)
+    cv = band_volume(imgL, imgR, base_b, lo_b, hi_b, s_cap, band)
     base = base_b.repeat_interleave(band)[:H]
     return cv, base
+
+
+def band_volume(imgL: torch.Tensor, imgR: torch.Tensor, base_b: torch.Tensor,
+                lo_b: torch.Tensor, hi_b: torch.Tensor, s_cap: int,
+                band: int) -> torch.Tensor:
+    """The cost volume (K3) of the images' rows for the given per-band
+    slot bases and filled shift ranges (`_band_ranges`)."""
+    L, R = _centered(imgL), _centered(imgR)
+    momL = ncc_moments(L, 1)
+    momR = ncc_moments(R, 1)
+    return cost_volume(L, R, (momL.n * momL.mean).contiguous(),
+                       momL.inv_norm.contiguous(), momR.mean.contiguous(),
+                       momR.inv_norm.contiguous(), base_b.contiguous(),
+                       lo_b.contiguous(), hi_b.contiguous(), s_cap, band)
 
 
 def resolve_recenter(iterations: int, recenter_every: int, t: int = 6) -> int:

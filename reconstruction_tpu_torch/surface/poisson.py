@@ -86,6 +86,73 @@ def _shift3(a: torch.Tensor, axis: int, d: int) -> torch.Tensor:
     return out
 
 
+# The dense multigrid V-cycle of the reference (`_laplacian` ... `_vcycle`,
+# `reconstruction_tpu/surface/poisson.py:81-141`).  `poisson_reconstruct`
+# solves spectrally; the z-sharded solver (`parallel/poisson_sharded.py`)
+# is held to this one.
+
+def _laplacian(x: torch.Tensor) -> torch.Tensor:
+    out = -6.0 * x
+    for ax in range(3):
+        out = out + _shift3(x, ax, 1) + _shift3(x, ax, -1)
+    return out
+
+
+def _jacobi(x: torch.Tensor, f: torch.Tensor, screen: torch.Tensor,
+            n_iter: int) -> torch.Tensor:
+    """Weighted Jacobi for (Delta - screen) x = f."""
+    omega = 2.0 / 3.0
+    diag = -6.0 - screen
+    for _ in range(n_iter):
+        nb = torch.zeros_like(x)
+        for ax in range(3):
+            nb = nb + _shift3(x, ax, 1) + _shift3(x, ax, -1)
+        x_new = (f - nb) / diag
+        x = x + omega * (x_new - x)
+    return x
+
+
+def _restrict(x: torch.Tensor) -> torch.Tensor:
+    """Full-weighting 2x restriction (trilinear average of 8 children)."""
+    R = x.shape[0]
+    return x.reshape(R // 2, 2, R // 2, 2, R // 2, 2).mean(dim=(1, 3, 5))
+
+
+def _prolong(x: torch.Tensor) -> torch.Tensor:
+    """Cell-centered trilinear prolongation: fine sample 2i gets
+    0.75 c_i + 0.25 c_{i-1}, fine 2i+1 gets 0.75 c_i + 0.25 c_{i+1}
+    (separable per axis; zero beyond the boundary)."""
+    for ax in range(3):
+        lo = 0.75 * x + 0.25 * _shift3_nd(x, ax, -1)
+        hi = 0.75 * x + 0.25 * _shift3_nd(x, ax, 1)
+        x = _interleave(lo, hi, ax)
+    return x
+
+
+def _shift3_nd(a: torch.Tensor, axis: int, d: int) -> torch.Tensor:
+    return _shift3(a, axis, d) if a.ndim == 3 else a
+
+
+def _interleave(lo: torch.Tensor, hi: torch.Tensor, axis: int) -> torch.Tensor:
+    stacked = torch.stack([lo, hi], dim=axis + 1)
+    shape = list(lo.shape)
+    shape[axis] *= 2
+    return stacked.reshape(shape)
+
+
+def _vcycle(x, f, screen, levels: int, pre: int, post: int) -> torch.Tensor:
+    if levels == 0 or x.shape[0] <= 4:
+        return _jacobi(x, f, screen, 40)
+    x = _jacobi(x, f, screen, pre)
+    r = f - (_laplacian(x) - screen * x)
+    r2 = _restrict(r) * 4.0  # h^2 scaling: coarse h = 2h
+    e2 = torch.zeros_like(r2)
+    e2 = _vcycle(e2, r2, _restrict(screen) * 4.0, levels - 1, pre, post)
+    x = x + _prolong(e2)
+    x = _jacobi(x, f, screen, post)
+    return x
+
+
 def _spectral_inv_laplacian(f: torch.Tensor) -> torch.Tensor:
     """Exact solve of the periodic 7-point Laplacian: chi = Delta^-1 f,
     zero-mean convention (the k = 0 mode dropped)."""

@@ -194,16 +194,36 @@ def test_missing_config(tmp_path, capsys):
     assert port == capsys.readouterr().out == f"Can't open file: {missing}\n"
 
 
-def test_sharded_raises(tmp_path):
-    path = write_scene(str(tmp_path), "port")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tmain(["prog", path, "--sharded"], device="cpu")
+def test_sharded_raises(runs):
+    """Named from when `--sharded` raised; it now checks that it does not:
+    a world of one on this process (the pairs' stereo through
+    `parallel/production.match_pairs_sharded`) writes the unsharded run's
+    PLY byte for byte."""
+    import torch.distributed as dist
+    path = write_config(runs["root"], jyaml, "sharded.ply")
+    assert tmain(["prog", path, "--sharded"], device="cpu") == 0
+    assert not dist.is_initialized()
+    with open(os.path.join(runs["root"], "sharded.ply"), "rb") as f:
+        sharded = f.read()
+    with open(os.path.join(runs["root"], "port.ply"), "rb") as f:
+        assert sharded == f.read()
+
+
+def _outcome(argv):
+    try:
+        return "returns", tmain(argv, device="cpu")
+    except Exception as e:  # noqa: BLE001 - the outcome itself is compared
+        return "raises", type(e)
 
 
 @pytest.mark.parametrize("args", [
     ["nope.yml"], ["batch", "nope.txt"], ["kinect", "nope.yml"], ["masks", "nope", "out"]])
 def test_sharded_raises_before_any_work(tmp_path, args):
-    """In every mode, before a file is read: the inputs here do not exist."""
+    """Named from when `--sharded` raised before any work; it now checks
+    that in every mode the flag changes nothing before a file is read (the
+    inputs here do not exist): the run ends as it does without the flag,
+    and no process group was started."""
+    import torch.distributed as dist
     argv = ["prog"] + [str(tmp_path / a) if "nope" in a else a for a in args]
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tmain(argv + ["--sharded"], device="cpu")
+    assert _outcome(argv + ["--sharded"]) == _outcome(argv)
+    assert not dist.is_initialized()

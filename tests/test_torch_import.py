@@ -56,6 +56,16 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.utils.metrics\n"
         "import reconstruction_tpu_torch.utils.watchdog\n"
         "import reconstruction_tpu_torch.utils.profiling\n"
+        "import reconstruction_tpu_torch.parallel\n"
+        "import reconstruction_tpu_torch.parallel.mesh\n"
+        "import reconstruction_tpu_torch.parallel.multihost\n"
+        "import reconstruction_tpu_torch.parallel.launch\n"
+        "import reconstruction_tpu_torch.parallel.fusion\n"
+        "import reconstruction_tpu_torch.parallel.distributed_ba\n"
+        "import reconstruction_tpu_torch.parallel.sharded\n"
+        "import reconstruction_tpu_torch.parallel.poisson_sharded\n"
+        "import reconstruction_tpu_torch.parallel.production\n"
+        "import reconstruction_tpu_torch.parallel.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'reconstruction_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
@@ -88,6 +98,27 @@ def test_reconstruct_runs_on_the_card_by_default():
     assert inspect.signature(reconstruct).parameters["device"].default == "cuda"
 
 
+def test_sharded_cli_no_longer_raises(tmp_path, capsys):
+    """`--sharded` reaches the config like a plain run (the multi-device
+    layer is ported): a missing config is refused as the reference does."""
+    from reconstruction_tpu_torch.__main__ import main
+    missing = str(tmp_path / "nope.yml")
+    assert main(["prog", missing, "--sharded"], device="cpu") == -1
+    assert capsys.readouterr().out == f"Can't open file: {missing}\n"
+
+
+def test_sharded_reconstruct_needs_the_card_by_default():
+    """With a mesh and the device left at its default (the card),
+    `reconstruct` refuses a CPU mesh rather than run on the CPU."""
+    from reconstruction_tpu_torch.config import preset
+    from reconstruction_tpu_torch.parallel.launch import run_local
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_parallel_work
+    (err,) = run_local(torch_parallel_work.default_device_error, 1, "cpu",
+                       preset("tiny"), [], timeout=120)
+    assert "'cuda'" in err and "'cpu'" in err
+
+
 NEW_ENTRY_POINTS = [
     ("reconstruction_tpu_torch.__main__", "main"),
     ("reconstruction_tpu_torch.pipeline.batch", "run_batch"),
@@ -99,6 +130,11 @@ NEW_ENTRY_POINTS = [
     ("reconstruction_tpu_torch.utils.metrics", "point_to_mesh_distance"),
     ("reconstruction_tpu_torch.utils.metrics", "chamfer_distance"),
     ("reconstruction_tpu_torch.utils.profiling", "resolve_chip"),
+    ("reconstruction_tpu_torch.parallel.mesh", "make_mesh"),
+    ("reconstruction_tpu_torch.parallel.multihost", "initialize_distributed"),
+    ("reconstruction_tpu_torch.parallel.multihost", "make_pod_mesh"),
+    ("reconstruction_tpu_torch.parallel.dryrun", "dryrun"),
+    ("reconstruction_tpu_torch.parallel.launch", "run_local"),
 ]
 
 
