@@ -3,8 +3,9 @@ against its plain PyTorch version at its path's full shapes, then runs
 each path that carries a kernel on one GPU: the per-pair stereo path
 (`match_pair`) at the full width of the `myself` preset, the tensor-core
 sweep's entry point (`ncc_sweep_match_mxu`), bundle adjustment at the
-bench size and the feature front end at full image size, each checked
-against its own criteria.
+bench size and the feature front end at full image size, the whole
+pipeline at the bench configuration and at the 32-camera `dome32` preset
+(3840x2160), each checked against its own criteria.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,9 @@ Phases (any failure raises; the exit code is then non-zero):
      K1 sweep (64-shift, guided +-2 with hole rows, rematch-style sparse
      holes; the blocks in each of its modes), K3 cost volume (slot-major,
      64-row bands and an edge-clamp case), K2 fused sweeps against as many
-     plain single sweeps (30 across a window re-extraction, and 13), K5
+     plain single sweeps (30 across a window re-extraction, and 13), K3
+     and K2 also in their bfloat16 instances (the TPU refine's bfloat16
+     cost window; K3's bound counts 2-byte entries, K2's 2-byte taps), K5
      tensor-core sweep (also against K1; 64 shifts, and 256 in two
      chunks, with K1's time and the pairs K5 evaluates beside it), all at
      H=1920, W=1280, C=3; K4
@@ -44,8 +47,9 @@ Phases (any failure raises; the exit code is then non-zero):
   7. Harris, colour descriptors, tracks and structure-only BA on three
      rendered 1280x1920 views (surface error), and at 160x120 card vs CPU
   8. reconstruct at the bench configuration, twice (phase_reconstruct),
-     and in a fresh subprocess the first and second call of the splat,
-     a sort and an rFFT (`first_calls`)
+     then once with the bfloat16 cost window (the same gates), and in a
+     fresh subprocess the first and second call of the splat, a sort and
+     an rFFT (`first_calls`)
   9. the CLI on the reference's on-disk format at that configuration: a
      subprocess `python3 -m reconstruction_tpu_torch config.yml` against an
      in-process reconstruct of the same config, PLY bytes equal
@@ -66,10 +70,18 @@ Phases (any failure raises; the exit code is then non-zero):
  12. the other modes: segment_frame at 1280x1920 and card against CPU,
      depth_to_points card against CPU, run_batch over a 10-camera take,
      cut_image_dir
- 13. the kernels line, the card line, and last {"ok": true, "device": {...}}
+ 13. the dome (phase_dome): preset "dome32" itself, 16 pairs at 3840x2160,
+     5 levels, refine 30 + 30*level, through reconstruct(mesh=...) on one
+     NCCL rank (the JAX dome tool's gates, wall by stage, peak memory);
+     pair (0, 1) in float32 and with the bfloat16 cost window (the bf16
+     kernels' launches in the kernels line, the disparity deviation), K3
+     and K2 of each run bit-equal to their plain versions on its finest
+     level's inputs (the 2160x128x3840 volume, all 150 sweeps); the
+     pair's seconds by stage and a profile of its finest level
+ 14. the kernels line, the card line, and last {"ok": true, "device": {...}}
 
 Named phases run alone (no kernels line, no result): kernels, slice, small,
-mxu, ba, front, reconstruct, cli, video, satellites, parallel.
+mxu, ba, front, reconstruct, cli, video, satellites, parallel, dome.
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -87,15 +99,6 @@ import numpy as np
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -192,11 +195,11 @@ def tile_union_pairs(active, lo, hi, tx: int, ty: int) -> float:
     return float(n.double().sum()) * tx * ty
 
 
-def volume_bound(cargs) -> dict:
+def volume_bound(cargs, elem: int = 4) -> dict:
     """K3: L, R (H, W, C) f32 and four (H, W) f32 moments read once, the
-    (H, s_cap, W) f32 volume written once; per filled (pixel, slot), C
-    multiplies and C-1 adds of the product, 4 adds of the 3x3 box and 6
-    for the score."""
+    (H, s_cap, W) volume of ``elem``-byte entries (4 float32, 2 bfloat16)
+    written once; per filled (pixel, slot), C multiplies and C-1 adds of
+    the product, 4 adds of the 3x3 box and 6 for the score."""
     import torch
     L, base_b, lo_b, hi_b, s_cap, band = (cargs[0],) + tuple(cargs[6:])
     H, W, C = L.shape
@@ -207,17 +210,17 @@ def volume_bound(cargs) -> dict:
     a = torch.maximum(lo - base, torch.zeros_like(lo))
     b = torch.minimum(hi - base, torch.full_like(hi, s_cap - 1))
     filled = torch.where(hi >= lo, (b - a + 1).clamp_min(1), 0)
-    nbytes = H * W * (2 * C + 4) * 4 + H * W * s_cap * 4
+    nbytes = H * W * (2 * C + 4) * 4 + H * W * s_cap * elem
     return bound(nbytes, float(filled.sum()) * W * (2 * C - 1 + 4 + 6))
 
 
 def refine_bound(d, cv, j0, jref, inner, ws: float, sweeps: int) -> dict:
     """K2 over ``sweeps`` sweeps in one launch: d, j0, jref (4 bytes) and
-    inner (1) read once and d written once; every 4-byte tap of the volume
-    that one of the sweeps reads, counted once however many read it (the
-    taps of the plain sweeps, from their anchors); ~70 float32 operations
-    (the parabola, two exps, the blend) per pixel that can move (valid and
-    inner) and sweep."""
+    inner (1) read once and d written once; every tap of the volume that
+    one of the sweeps reads (4 bytes in float32, 2 in bfloat16), counted
+    once however many read it (the taps of the plain sweeps, from their
+    anchors); ~70 float32 operations (the parabola, two exps, the blend)
+    per pixel that can move (valid and inner) and sweep."""
     import torch
     from reconstruction_tpu_torch.config import NOMATCH
     from reconstruction_tpu_torch.ops import refine as K2
@@ -239,7 +242,8 @@ def refine_bound(d, cv, j0, jref, inner, ws: float, sweeps: int) -> dict:
         d = K2.refine_sweep_plain(d, cv, j0, jref, inner, ws)
     taps = float(touched.sum())
     del touched
-    return dict(bound(H * W * 17 + taps * 4, sweeps * float(movers.sum()) * 70),
+    return dict(bound(H * W * 17 + taps * cv.element_size(),
+                      sweeps * float(movers.sum()) * 70),
                 taps_distinct=taps, tap_reads=reads)
 
 
@@ -460,6 +464,7 @@ def phase_kernels(card: str) -> dict:
     s_cap, band = 128, 64
     m1 = ncc_moments(L, 1)
     m1R = ncc_moments(R, 1)
+    bf16 = torch.bfloat16
     for case, dd in (("64-row bands", d), ("edge clamp", d_far)):
         cargs = (L, R, (m1.n * m1.mean).contiguous(), m1.inv_norm, m1R.mean,
                  m1R.inv_norm, *_band_ranges(dd, s_cap, band, 16), s_cap, band)
@@ -474,7 +479,18 @@ def phase_kernels(card: str) -> dict:
             f"edge slots written={edges}")
         if not equal or (dd is d_far and not edges):
             raise AssertionError(f"K3 ({case}) differs from its plain version")
-        del cvp
+        del cvp, cvk
+        # K3's bfloat16 instance against its plain version (the float32
+        # plain volume cast to bfloat16).
+        cvb = K13.cost_volume(*cargs, dtype=bf16)
+        cvp = K13.cost_volume_plain(*cargs, dtype=bf16)
+        torch.cuda.synchronize()
+        equal = torch.equal(cvb, cvp)
+        err_b = float((cvb.float() - cvp.float()).abs().max())
+        log(f"K3 cost_volume bfloat16 ({case}): bit-equal={equal} max_abs_err={err_b}")
+        if not (equal and cvb.dtype == bf16):
+            raise AssertionError(f"K3 bfloat16 ({case}) differs from its plain version")
+        del cvb, cvp
     cargs = (L, R, (m1.n * m1.mean).contiguous(), m1.inv_norm, m1R.mean,
              m1R.inv_norm, *_band_ranges(d, s_cap, band, 16), s_cap, band)
     base_b = cargs[6]
@@ -499,58 +515,80 @@ def phase_kernels(card: str) -> dict:
     report(f"K3 cost_volume s_cap {s_cap} band {band} {H}x{W}",
            results["cost_volume"], card)
 
+    # K3's bfloat16 instance at the same shape (the TPU refine's bfloat16
+    # window: half the stores), with the same two yardsticks.
+    cvb = K13.cost_volume(*cargs, dtype=bf16)
+    fill = torch.empty_like(cvb)
+    fill_b = cuda_ms(lambda: fill.fill_(0.5), 10)
+    del fill
+    empty_b = kernel_ms(lambda: K13.cost_volume(*eargs, dtype=bf16), "cost_volume_kernel", 10)
+    log(f"K3 bfloat16 yardsticks: fill_ of the volume {fill_b:.4f} ms, K3 with no "
+        f"filled slot {empty_b:.4f} ms ({card})")
+    ms = kernel_ms(lambda: K13.cost_volume(*cargs, dtype=bf16), "cost_volume_kernel", 10)
+    call_ms = cuda_ms(lambda: K13.cost_volume(*cargs, dtype=bf16), 10)
+    plain_ms = cuda_ms(lambda: K13.cost_volume_plain(*cargs, dtype=bf16), 1)
+    results["cost_volume_bf16"] = dict(max_abs_err=err_b, ms=ms, plain_ms=plain_ms,
+                                       library_ms=None, call_ms=call_ms, fill_ms=fill_b,
+                                       empty_ms=empty_b, **volume_bound(cargs, elem=2))
+    report(f"K3 cost_volume bfloat16 s_cap {s_cap} band {band} {H}x{W}",
+           results["cost_volume_bf16"], card)
+
     # K2: the fused sweeps against as many plain single sweeps, on the
-    # volume above: 30 sweeps with the auto re-extraction (18 + 12), and 13
-    # sweeps (13 % T != 0).
+    # volumes above (float32, then bfloat16): 30 sweeps with the auto
+    # re-extraction (18 + 12), and 13 sweeps (13 % T != 0).
     m = find_margin(valid, r)
     inner = inner_box(m, H, W, inset=1).contiguous()
     rowbase = base_b.repeat_interleave(band)[:H].contiguous()
 
-    def sweeps(fused: bool, total: int, every: int):
+    def sweeps(cv, fused: bool, total: int, every: int):
         dd, done = d.contiguous(), 0
         while done < total:
             j0, jref = K2.window_anchors(dd, rowbase)
             n = min(every, total - done)
             if fused:
-                dd = K2.refine_sweeps_fused(dd, cvk, j0, jref, inner, 0.03, n)
+                dd = K2.refine_sweeps_fused(dd, cv, j0, jref, inner, 0.03, n)
             else:
                 for _ in range(n):
-                    dd = K2.refine_sweep_plain(dd, cvk, j0, jref, inner, 0.03)
+                    dd = K2.refine_sweep_plain(dd, cv, j0, jref, inner, 0.03)
             done += n
         return dd
 
     T = K2.SWEEPS_PER_LAUNCH
-    errs = []
-    for total, every in ((30, resolve_recenter(30, -1)), (13, 0)):
-        every = every or total
-        n0 = K2.refine_sweeps_fused.launches
-        dk = sweeps(True, total, every)
-        launched = K2.refine_sweeps_fused.launches - n0
-        dp = sweeps(False, total, every)
-        torch.cuda.synchronize()
-        equal = torch.equal(dk, dp)
-        errs.append(float((dk - dp).abs().max()))
-        log(f"K2 refine_sweeps_fused {total} sweeps (window every {every}, "
-            f"T={T}, {launched} launches): bit-equal={equal} "
-            f"max_abs_err={errs[-1]} "
-            f"moved={float(((dk != d) & valid).float().mean()):.4f}")
-        if not equal:
-            raise AssertionError("K2 differs from its plain sweeps")
     j0, jref = K2.window_anchors(d, rowbase)
-    ms = kernel_ms(lambda: K2.refine_sweeps_fused(d, cvk, j0, jref, inner,
-                                                  0.03, T), "refine_sweeps_kernel", 20)
-    plain_ms = cuda_ms(lambda: K2.refine_sweeps_fused_plain(
-        d, cvk, j0, jref, inner, 0.03, T), 2)
-    results["refine_sweeps_fused"] = dict(
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
-        sweeps=T, ms_per_sweep=ms / T,
-        **refine_bound(d, cvk, j0, jref, inner, 0.03, T))
-    kb = results["refine_sweeps_fused"]
-    log(f"K2 taps of one launch: {kb['taps_distinct']:.0f} distinct of "
-        f"{kb['tap_reads']:.0f} reads over {T} sweeps; bound "
-        f"{kb['bound_bytes'] / 1e6:.1f} MB, {kb['bound_ms'] / T:.4f} ms a sweep")
-    report(f"K2 refine_sweeps_fused, one launch of {T} sweeps {H}x{W} "
-           f"({ms / T:.4f} ms a sweep)", results["refine_sweeps_fused"], card)
+    for key, cv in (("refine_sweeps_fused", cvk), ("refine_sweeps_fused_bf16", cvb)):
+        errs = []
+        entry = K2.SWEEP_ENTRIES[cv.dtype]
+        for total, every in ((30, resolve_recenter(30, -1)), (13, 0)):
+            every = every or total
+            n0 = K2.refine_sweeps_fused.launches[entry]
+            dk = sweeps(cv, True, total, every)
+            launched = K2.refine_sweeps_fused.launches[entry] - n0
+            dp = sweeps(cv, False, total, every)
+            torch.cuda.synchronize()
+            equal = torch.equal(dk, dp)
+            errs.append(float((dk - dp).abs().max()))
+            log(f"K2 {key} {total} sweeps (window every {every}, "
+                f"T={T}, {launched} launches): bit-equal={equal} "
+                f"max_abs_err={errs[-1]} "
+                f"moved={float(((dk != d) & valid).float().mean()):.4f}")
+            chunks = [every] * (total // every) + [total % every] * (total % every > 0)
+            if not (equal and launched == sum(-(-n // T) for n in chunks)):
+                raise AssertionError(f"K2 ({key}) differs from its plain sweeps")
+        ms = kernel_ms(lambda: K2.refine_sweeps_fused(d, cv, j0, jref, inner,
+                                                      0.03, T), "refine_sweeps_kernel", 20)
+        plain_ms = cuda_ms(lambda: K2.refine_sweeps_fused_plain(
+            d, cv, j0, jref, inner, 0.03, T), 2)
+        results[key] = dict(
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+            sweeps=T, ms_per_sweep=ms / T,
+            **refine_bound(d, cv, j0, jref, inner, 0.03, T))
+        kb = results[key]
+        log(f"K2 {key} taps of one launch: {kb['taps_distinct']:.0f} distinct of "
+            f"{kb['tap_reads']:.0f} reads over {T} sweeps; bound "
+            f"{kb['bound_bytes'] / 1e6:.1f} MB, {kb['bound_ms'] / T:.4f} ms a sweep")
+        report(f"K2 {key}, one launch of {T} sweeps {H}x{W} "
+               f"({ms / T:.4f} ms a sweep)", kb, card)
+    del cvb
 
     # K5: the tensor-core sweep against its plain version and against K1,
     # on K1's 64-shift case (one 128-shift chunk; the bounds gate the rest)
@@ -797,8 +835,6 @@ def cloud_metrics(cloud) -> dict:
 def phase_slice(card: str) -> dict:
     import torch
     from reconstruction_tpu_torch.config import NOMATCH, preset
-    from reconstruction_tpu_torch.ops import ncc_sweep as K13
-    from reconstruction_tpu_torch.ops import refine as K2
     from reconstruction_tpu_torch.stereo.pipeline import match_pair
     from reconstruction_tpu_torch.utils.synthetic import make_stereo_scene
 
@@ -811,16 +847,7 @@ def phase_slice(card: str) -> dict:
     args = (cfg, imgs[0], imgs[1], masks[0], masks[1], cams[0].K, cams[0].Rt,
             cams[1].K, cams[1].Rt)
 
-    wrappers = (("ncc_sweep", K13.ncc_sweep), ("cost_volume", K13.cost_volume),
-                ("refine_sweeps_fused", K2.refine_sweeps_fused))
-    for _, w in wrappers:
-        w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = match_pair(*args, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers}
+    res, wall, launches = counted(lambda: match_pair(*args, device="cuda"))
     log(f"match_pair (first run, build excluded): {wall:.3f} s wall ({card})")
     log(f"per-level ms (CUDA events): {[round(v, 3) for v in res.level_ms]}")
     log(f"launches on the main path: {launches}")
@@ -838,6 +865,9 @@ def phase_slice(card: str) -> dict:
         f"{res.refine_drift.cpu().numpy().round(4).tolist()}")
     metrics = cloud_metrics(res.cloud)
     log(f"cloud: {metrics}")
+    digests = _pair_digests(res)
+    log(f"digests (sha256 of dtype, shape and bytes): disparity {digests['disparity']}, xyz {digests['xyz']}, "
+        f"colors {digests['colors']}, valid {digests['valid']}")
     if not (metrics["points"] > 5000 and metrics["outlier_frac"] < 0.02
             and metrics["inlier_rmse"] < 0.05):
         raise AssertionError(f"cloud outside the e2e criteria: {metrics}")
@@ -855,7 +885,7 @@ def phase_slice(card: str) -> dict:
     prof = profile_run(lambda: match_pair(*args, device="cuda"),
                        "one warm match_pair", card)
     k1 = k1_launch_table(lambda: match_pair(*args, device="cuda"), card)
-    return dict(launches=launches, wall_s=[wall, wall2],
+    return dict(launches=launches, wall_s=[wall, wall2], digests=digests,
                 level_ms=[res.level_ms, res2.level_ms], matched_frac=frac,
                 cloud=metrics, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
                 profile=prof, k1_launches=k1)
@@ -1115,17 +1145,30 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def counted(fn):
+def counted(fn, bf16: bool = False):
     """(result, seconds, launches by kernel) of ``fn()``: the pair path's
-    kernel counts (K1, K3, K2) set to 0 just before it and read just after."""
+    kernel counts (K1's, and K3's and K2's by C entry) set to 0 just before
+    it and read just after, for K3 and K2 in the volume type of the path
+    (float32, or bfloat16 with ``bf16``, named with a "_bf16" suffix).
+    Raises if ``fn`` launched K3 or K2 in the other type."""
+    import torch
     from reconstruction_tpu_torch.ops import ncc_sweep as K13
     from reconstruction_tpu_torch.ops import refine as K2
-    wrappers = (("ncc_sweep", K13.ncc_sweep), ("cost_volume", K13.cost_volume),
-                ("refine_sweeps_fused", K2.refine_sweeps_fused))
-    for _, w in wrappers:
-        w.launches = 0
+    dt = torch.bfloat16 if bf16 else torch.float32
+    keyed = {"cost_volume": (K13.cost_volume, K13.VOLUME_ENTRIES[dt]),
+             "refine_sweeps_fused": (K2.refine_sweeps_fused, K2.SWEEP_ENTRIES[dt])}
+    K13.ncc_sweep.launches = 0
+    for w, _ in keyed.values():
+        w.launches.clear()
     out, seconds = _timed(fn)
-    return out, seconds, {name: w.launches for name, w in wrappers}
+    other = {e: n for w, entry in keyed.values() for e, n in w.launches.items() if e != entry}
+    if other:
+        raise AssertionError(f"the {dt} path launched kernels of the other volume type: "
+                             f"{other}")
+    sfx = "_bf16" if bf16 else ""
+    return out, seconds, dict(ncc_sweep=K13.ncc_sweep.launches,
+                              **{name + sfx: w.launches[entry]
+                                 for name, (w, entry) in keyed.items()})
 
 
 # The JAX package's full bench on this configuration (BENCH_r05.json "mesh").
@@ -1194,8 +1237,11 @@ def phase_reconstruct(card: str) -> dict:
     (4,5), (7,6), mls_radius 0.02, a 256^3 Poisson grid, no dedup.  Two
     runs: stage seconds, K1/K3/K2 launches, mesh against the scene's
     surface and against the reference's vertex count, runs identical.
-    Then SOR and normals on one pair's raw cloud and MLS on the fused
-    cloud, on the device path and on the native host path."""
+    A third run with the bfloat16 cost window (refine_cv_dtype), held to
+    the same gates.  Then SOR and normals on one pair's raw cloud and MLS
+    on the fused cloud, on the device path and on the native host path."""
+    import dataclasses
+
     import torch
     from reconstruction_tpu_torch import native
     from reconstruction_tpu_torch.cloud.filters import sor_filter
@@ -1246,6 +1292,28 @@ def phase_reconstruct(card: str) -> dict:
     if not (run["rmse"] <= RMSE_LIMIT and 0.8 <= ratio <= 1.25 and same
             and np.isfinite(rec.vertices).all() and float(np.std(rec.colors)) > 10.0):
         raise AssertionError("reconstruct outside its gates")
+
+    # The bfloat16 cost window (refine_cv_dtype="bfloat16": K3 and K2 in
+    # bfloat16 at every level), once, with the float32 runs' gates.
+    cfg_b = cfg.replace(stereo=dataclasses.replace(cfg.stereo, refine_cv_dtype="bfloat16"))
+    torch.cuda.reset_peak_memory_stats()
+    rec_b, wall_b, launches_b = counted(lambda: reconstruct(cfg_b, pairs, device="cuda"),
+                                        bf16=True)
+    bf = dict(wall_s=wall_b, launches=launches_b, verts=int(len(rec_b.vertices)),
+              faces=int(len(rec_b.faces)), cloud_points=int(len(rec_b.cloud_xyz)),
+              rmse=point_to_surface_rmse(np.asarray(rec_b.vertices)),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+              spans={k: round(v, 4) for k, v in rec_b.timer.spans.items()})
+    bf["vert_ratio"] = bf["verts"] / REF_MESH_VERTS
+    log(f"reconstruct bfloat16 cost window: {wall_b:.2f} s wall ({card}); fused cloud "
+        f"{bf['cloud_points']} points, mesh {bf['verts']} vertices / {bf['faces']} faces "
+        f"({bf['vert_ratio']:.3f}x of {REF_MESH_VERTS}), RMSE {bf['rmse']:.6f} (float32 "
+        f"{run['rmse']:.6f}), peak {bf['peak_mem_gb']:.2f} GiB, K1/K3/K2 launches "
+        f"{_launch_line(launches_b)}; stage seconds {bf['spans']}")
+    if not (bf["rmse"] <= RMSE_LIMIT and 0.8 <= bf["vert_ratio"] <= 1.25
+            and np.isfinite(rec_b.vertices).all() and all(launches_b.values())):
+        raise AssertionError("reconstruct with the bfloat16 cost window outside its gates")
+    del rec_b
 
     # What a fresh process pays once, operation by operation (the first
     # run's Poisson span holds ~12 s more than the second's).
@@ -1303,7 +1371,7 @@ def phase_reconstruct(card: str) -> dict:
         + "; ".join(f"{k}: device {v['torch']:.3f} native {v['native']:.3f} "
                     f"agree {v['agree']:.4g}" for k, v in backends.items()))
     return dict(runs=[r for _, r in runs], identical=same, vert_ratio=ratio,
-                launches=run["launches"], render_s=render_s, backends=backends,
+                launches=run["launches"], render_s=render_s, backends=backends, bf16=bf,
                 first_calls=first,
                 raw_points=int(hv.sum()), rec=rec, scene=(cams, imgs, masks))
 
@@ -1322,8 +1390,8 @@ def write_calib(root: str, cams) -> None:
 
 
 def _launch_line(launches: dict) -> str:
-    return "/".join(str(launches[k]) for k in ("ncc_sweep", "cost_volume",
-                                               "refine_sweeps_fused"))
+    """K1/K3/K2 launches of a `counted` run."""
+    return "/".join(str(n) for n in launches.values())
 
 
 def log_seconds(stderr: str, t_launch: float, marker: str) -> float:
@@ -1649,8 +1717,6 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
     import torch
     import torch.distributed as dist
     from reconstruction_tpu_torch.ops import ba_coupling as K4
-    from reconstruction_tpu_torch.ops import ncc_sweep as K13
-    from reconstruction_tpu_torch.ops import refine as K2
     from reconstruction_tpu_torch.parallel.distributed_ba import ba_step_sharded
     from reconstruction_tpu_torch.parallel.dryrun import dryrun
     from reconstruction_tpu_torch.parallel.fusion import distributed_splat
@@ -1695,21 +1761,14 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
     pairs = [PairInput(image0=views[a], image1=views[b], mask0=masks[a], mask1=masks[b],
                        K0=cams_K[a], Rt0=cams_Rt[a], K1=cams_K[b], Rt1=cams_Rt[b])
              for a, b in cfg.cam_pairs]
-    wrappers = dict(ncc_sweep=K13.ncc_sweep, cost_volume=K13.cost_volume,
-                    refine_sweeps_fused=K2.refine_sweeps_fused, ba_coupling=K4.ba_coupling)
     steps, launches, comm, seconds = {}, {}, {}, {}
 
     def step(name, fn):
-        for w in wrappers.values():
-            w.launches = 0
+        K4.ba_coupling.launches = 0
         COMM.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with CommClock() as clock:
-            res = fn()
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
-        launches[name] = {k: w.launches for k, w in wrappers.items()}
+            res, seconds[name], n = counted(fn)
+        launches[name] = dict(n, ba_coupling=K4.ba_coupling.launches)
         comm[name] = dict(COMM.as_dict(), seconds=clock.seconds)
         return res
 
@@ -2334,6 +2393,287 @@ def phase_satellites(card: str) -> dict:
     return out
 
 
+def dome_preset_config():
+    """`preset("dome32")` itself (16 pairs, 5 levels from 240x135 to
+    3840x2160, refine 30 + 30*level, SOR k 100, a 256^3 grid), with the
+    bench's scene-unit mls_radius 0.02 (`bench.py:99-126`; the preset's
+    2.5 is in millimetres)."""
+    import dataclasses
+    from reconstruction_tpu_torch.config import preset
+    base = preset("dome32")
+    return base.replace(cloud=dataclasses.replace(base.cloud, mls_radius=0.02))
+
+
+# The functions `stereo.pipeline` calls by name, timed by `pair_stage_seconds`.
+PAIR_STAGES = ("rectify_pair", "rectify_map", "remap_bilinear", "erode_mask",
+               "build_pyramid", "valid_mask", "find_margin", "brute_force_match",
+               "guided_match", "smoothness_constraint", "ordering_constraint",
+               "uniqueness_constraint", "propagate_bounds", "rematch", "median_filter",
+               "disparity_refine", "_drift", "disparity_to_cloud")
+
+
+def pair_stage_seconds(run) -> dict:
+    """Seconds by stage of one match_pair ``run``, the card synchronized
+    around each call: the functions `stereo.pipeline` calls by name are
+    wrapped here (not in the package) for the run, keyed by pyramid level
+    inside `match_one_level` ("L4/ordering_constraint") and by name
+    outside it; "other" is the wall less their sum."""
+    import torch
+    from reconstruction_tpu_torch.stereo import pipeline as sp
+    real = {n: getattr(sp, n) for n in PAIR_STAGES + ("match_one_level",)}
+    secs, level = {}, [None]
+
+    def timed(name):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            key = name if level[0] is None else f"L{level[0]}/{name}"
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    def one_level(*a, **kw):
+        level[0] = a[5]
+        try:
+            return real["match_one_level"](*a, **kw)
+        finally:
+            level[0] = None
+
+    for name in PAIR_STAGES:
+        setattr(sp, name, timed(name))
+    sp.match_one_level = one_level
+    try:
+        _, wall = _timed(run)
+    finally:
+        for name, fn in real.items():
+            setattr(sp, name, fn)
+    secs["other"] = wall - sum(secs.values())
+    return dict(wall_s=wall, seconds=dict(sorted(secs.items(), key=lambda kv: -kv[1])))
+
+
+def profile_level(run, level: int, label: str, card: str) -> dict:
+    """`profile_run` over pyramid level ``level`` of one match_pair ``run``
+    (its `match_one_level` call, wrapped here for the run)."""
+    from reconstruction_tpu_torch.stereo import pipeline as sp
+    real, out = sp.match_one_level, {}
+
+    def one_level(*a, **kw):
+        if a[5] != level:
+            return real(*a, **kw)
+        box = {}
+        out["profile"] = profile_run(lambda: box.setdefault("state", real(*a, **kw)),
+                                     label, card)
+        return box["state"]
+
+    sp.match_one_level = one_level
+    try:
+        run()
+    finally:
+        sp.match_one_level = real
+    return out["profile"]
+
+
+def keep_refine_call(run, shape):
+    """``run()`` with the pair path's `disparity_refine` wrapped so that
+    its first call on an (H, W) = ``shape`` disparity (the finest level's
+    first direction) is kept: returns (``run()``, (args, kwargs, output))."""
+    from reconstruction_tpu_torch.stereo import pipeline
+    real, kept = pipeline.disparity_refine, []
+
+    def keep(d, *args, **kwargs):
+        out = real(d, *args, **kwargs)
+        if not kept and tuple(d.shape) == shape:
+            kept.append(((d,) + args, kwargs, out))
+        return out
+
+    pipeline.disparity_refine = keep
+    try:
+        res = run()
+    finally:
+        pipeline.disparity_refine = real
+    if not kept:
+        raise AssertionError(f"no disparity_refine call on a {shape} disparity")
+    return res, kept[0]
+
+
+def plain_refine_sweeps(d, cv, base, inner, iterations: int, ws: float, every: int):
+    """`ops/refine.refine_sweeps` with the plain sweeps in place of K2."""
+    from reconstruction_tpu_torch.ops import refine as K2
+    chunk = every if every > 0 else iterations
+    done = 0
+    while done < iterations:
+        j0, jref = K2.window_anchors(d, base)
+        n = min(chunk, iterations - done)
+        d = K2.refine_sweeps_fused_plain(d, cv, j0, jref, inner, ws, n)
+        done += n
+    return d
+
+
+def refine_call_against_plain(call, label: str) -> dict:
+    """K3 and K2 on one kept `disparity_refine` call (`keep_refine_call`)
+    against their plain versions, in the call's cv_dtype: the volume bit-
+    equal to `cost_volume_plain`'s, and the refined disparity after all
+    the call's sweeps (window re-extractions included) bit-equal to the
+    plain sweeps' and to what the call returned on the path.  Returns, by
+    kernel name ("_bf16" for the bfloat16 instances), max_abs_err and the
+    plain version's seconds."""
+    import inspect
+
+    import torch
+    from reconstruction_tpu_torch.ops import ncc_sweep as K13
+    from reconstruction_tpu_torch.ops import refine as K2
+    from reconstruction_tpu_torch.stereo.margins import inner_box
+    from reconstruction_tpu_torch.stereo.refine import (
+        _band_ranges, disparity_refine, resolve_recenter, volume_args, volume_dtype)
+    args, kwargs, path_out = call
+    bound = inspect.signature(disparity_refine).bind(*args, **kwargs)
+    bound.apply_defaults()
+    a = bound.arguments
+    disp = a["disp"].float()
+    H, W = disp.shape
+    band = min(a["band"], H)
+    base_b, lo_b, hi_b = _band_ranges(disp, a["s_cap"], band, a["drift"])
+    cargs = volume_args(a["imgL"], a["imgR"], base_b, lo_b, hi_b, a["s_cap"], band)
+    dt = volume_dtype(a["cv_dtype"])
+    sfx = "_bf16" if dt == torch.bfloat16 else ""
+    cv = K13.cost_volume(*cargs, dtype=dt)
+    cvp, plain_v = _timed(lambda: K13.cost_volume_plain(*cargs, dtype=dt))
+    equal_v = torch.equal(cv, cvp) and cv.dtype == dt
+    err_v = 0.0 if equal_v else float((cv.float() - cvp.float()).abs().max())
+    del cvp
+    base = base_b.repeat_interleave(band)[:H]
+    inner = inner_box(a["m"], H, W, inset=1)
+    every = resolve_recenter(a["iterations"], a["recenter_every"])
+    dk = K2.refine_sweeps(disp, cv, base, inner, a["iterations"], a["ws"], every)
+    dp, plain_r = _timed(lambda: plain_refine_sweeps(disp.contiguous(), cv, base,
+                                                     inner.contiguous(), a["iterations"],
+                                                     a["ws"], every))
+    equal_r = torch.equal(dk, dp)
+    err_r = float((dk - dp).abs().max())
+    same_path = torch.equal(dk, path_out)
+    log(f"{label}: K3{sfx} {H}x{a['s_cap']}x{W} volume ({cv.numel()} cells, "
+        f"shifts {int(lo_b.min())}..{int(hi_b.max())}) bit-equal to its plain version="
+        f"{equal_v} (plain {plain_v:.2f} s); K2{sfx} {a['iterations']} sweeps (window "
+        f"every {every or a['iterations']}) bit-equal to the plain sweeps={equal_r} "
+        f"(max_abs_err {err_r}, plain {plain_r:.2f} s), equal to the path's output="
+        f"{same_path}")
+    if not (equal_v and equal_r and same_path):
+        raise AssertionError(f"{label}: K3{sfx} or K2{sfx} differs from its plain version")
+    return {"cost_volume" + sfx: dict(max_abs_err=err_v, plain_s=plain_v, cells=cv.numel()),
+            "refine_sweeps_fused" + sfx: dict(max_abs_err=err_r, plain_s=plain_r,
+                                              sweeps=a["iterations"])}
+
+
+def phase_dome(card: str) -> dict:
+    """The 32-camera dome at its own size (`preset("dome32")`: 16 pairs,
+    3840x2160, 5 levels, refine 30 + 30*level; `dome_preset_config`)
+    through the production entry `reconstruct(mesh=...)` on one NCCL rank,
+    by the dome tool's functions (`reconstruction_tpu_torch/tools/
+    demo_dome.py`): wall by stage, K1/K3/K2 launches, peak device memory,
+    cloud points, vertices and point-to-surface RMSE, held to the JAX
+    tool's gates (finite vertices, more than 10,000, RMSE < 0.2).  Then
+    pair (0, 1) through match_pair in float32 and with the bfloat16 cost
+    window (wall, per-level ms, the pair's own peak memory, launches, and
+    |d_f32 - d_bf16| over the finest pixels valid in both), the float32
+    pair's seconds by stage, and a profile of its finest level.  K3 and
+    K2 of each of the two runs are held against their plain versions on
+    the inputs the run gave them at the finest level (3840x2160, the
+    volume 2160x128x3840)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from reconstruction_tpu_torch.config import NOMATCH
+    from reconstruction_tpu_torch.parallel.mesh import COMM
+    from reconstruction_tpu_torch.stereo.pipeline import match_pair
+    from reconstruction_tpu_torch.tools import demo_dome
+
+    cfg = dome_preset_config()
+    torch.cuda.empty_cache()
+    (cams, pairs), render_s = _timed(lambda: demo_dome.dome_pairs(cfg, "cuda"))
+    log(f"dome: {2 * cfg.num_pairs} views {cfg.finest_size[0]}x{cfg.finest_size[1]} "
+        f"rendered in {render_s:.2f} s; {cfg.num_pairs} pairs, {cfg.pyramid_levels} "
+        f"levels, refine {[cfg.refine_iterations(v) for v in range(cfg.pyramid_levels)]}")
+    torch.cuda.reset_peak_memory_stats()
+    COMM.reset()
+    (rec, wall), _, launches = counted(lambda: demo_dome.reconstruct_sharded(cfg, pairs, "cuda"))
+    summ = demo_dome.summary(cfg, rec, wall, 1, "cuda")
+    ok = demo_dome.passes(rec)
+    spans = {k: round(v, 4) for k, v in rec.timer.spans.items()}
+    out = dict(summary=summ, spans=spans, launches=launches, render_s=render_s,
+               stats=rec.stats.records, comm=COMM.as_dict(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"dome reconstruct(mesh=...), one NCCL rank: {wall:.2f} s wall ({card}); "
+        f"stage seconds {spans}; K1/K3/K2 launches {_launch_line(launches)}; collectives "
+        f"{out['comm']}; peak device "
+        f"memory {out['peak_mem_gb']:.2f} GiB; fused cloud {summ['cloud_points']} points, "
+        f"mesh {summ['verts']} vertices / {summ['faces']} faces, RMSE "
+        f"{summ['surface_rmse']}; stats {rec.stats.records}")
+    log(json.dumps(summ))
+    if not (ok and all(launches.values())):
+        raise AssertionError("the dome's mesh fails the JAX tool's gates (finite vertices, "
+                             "more than 10,000, RMSE < 0.2) or a kernel was not launched")
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Pair (0, 1) alone: float32, then the bfloat16 cost window.
+    pin = pairs[0]
+    args = (pin.image0, pin.image1, pin.mask0, pin.mask1, pin.K0, pin.Rt0, pin.K1, pin.Rt1)
+    ab, checks = {}, {}
+    finest = (cfg.finest_size[1], cfg.finest_size[0])
+    for dt in ("float32", "bfloat16"):
+        c = cfg.replace(stereo=dataclasses.replace(cfg.stereo, refine_cv_dtype=dt))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        (res, s, n), call = keep_refine_call(
+            lambda: counted(lambda: match_pair(c, *args, device="cuda"),
+                            bf16=dt == "bfloat16"), finest)
+        ab[dt] = dict(wall_s=s, launches=n, level_ms=res.level_ms,
+                      peak_gb=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                      cloud=cloud_metrics(res.cloud), disparity=res.disparity,
+                      drift=res.refine_drift.cpu().numpy().round(4).tolist())
+        log(f"dome pair (0, 1) with a {dt} cost volume: {s:.2f} s wall, per-level ms "
+            f"{[round(v, 1) for v in res.level_ms or ()]}, its own peak device memory "
+            f"{ab[dt]['peak_gb']:.3f} GiB, K1/K3/K2 launches {_launch_line(n)}, refine "
+            f"drift p99 {ab[dt]['drift']}, cloud {ab[dt]['cloud']} ({card})")
+        if not all(n.values()):
+            raise AssertionError(f"the dome pair ({dt}) did not launch every kernel")
+        del res
+        checks.update(refine_call_against_plain(
+            call, f"dome pair (0, 1) {dt}, finest level, first direction"))
+        del call
+        gc.collect()
+        torch.cuda.empty_cache()
+    d32, d16 = ab["float32"].pop("disparity"), ab["bfloat16"].pop("disparity")
+    both = (d32 != NOMATCH) & (d16 != NOMATCH)
+    diff = (d32 - d16).abs()[both].cpu().numpy()
+    dev = dict(valid_both=int(both.sum()),
+               valid_one=int(((d32 != NOMATCH) ^ (d16 != NOMATCH)).sum()),
+               equal_share=float((diff == 0).mean()),
+               **{f"p{q}": float(np.percentile(diff, q)) for q in (50, 90, 99)},
+               max=float(diff.max()))
+    log(f"dome pair (0, 1) bfloat16 against float32 at the finest level: |d_f32 - d_bf16| "
+        f"over {dev['valid_both']} pixels valid in both: p50 {dev['p50']:.4g}, p90 "
+        f"{dev['p90']:.4g}, p99 {dev['p99']:.4g}, max {dev['max']:.4g}, equal "
+        f"{dev['equal_share']:.4f}; valid in one only {dev['valid_one']}; peak memory "
+        f"{ab['float32']['peak_gb']:.3f} against {ab['bfloat16']['peak_gb']:.3f} GiB")
+    del d32, d16, both
+
+    run = lambda: match_pair(cfg, *args, device="cuda")
+    stages = pair_stage_seconds(run)
+    log(f"dome pair (0, 1) float32, seconds by stage (the card synchronized around "
+        f"each; wall {stages['wall_s']:.2f} s, {card}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in list(stages["seconds"].items())[:24]))
+    prof = profile_level(run, cfg.pyramid_levels - 1,
+                         "the dome pair's finest level (3840x2160, float32)", card)
+    return dict(out, pair_ab=ab, kernel_checks=checks, deviation=dev, pair_stages=stages,
+                finest_profile=prof)
+
+
 def main() -> int:
     import torch
     # The package comes first: alone in a directory the script stops here.
@@ -2344,6 +2684,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from reconstruction_tpu_torch.utils.profiling import card_line
     card = card_line()
     log(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2364,7 +2705,7 @@ def main() -> int:
             "reconstruct": lambda: phase_reconstruct(card), "cli": lambda: phase_cli(card),
             "video": lambda: phase_video(card),
             "satellites": lambda: phase_satellites(card),
-            "parallel": lambda: phase_parallel(card)}
+            "parallel": lambda: phase_parallel(card), "dome": lambda: phase_dome(card)}
     if sys.argv[1:]:
         for name in sys.argv[1:]:
             only[name]()
@@ -2381,6 +2722,7 @@ def main() -> int:
     par = phase_parallel(card, seq=recon.pop("rec"), scene=recon.pop("scene"))
     vid = phase_video(card)
     sat = phase_satellites(card)
+    dome = phase_dome(card)
 
     src = "reconstruction_tpu_torch/csrc/"
     rows = [
@@ -2394,14 +2736,29 @@ def main() -> int:
              replaces="reconstruction_tpu/ops/ba_coupling_pallas.py:39"),
         dict(name="ncc_sweep_mxu", route="cuda", source=src + "ncc_sweep_mxu.cu",
              replaces="reconstruction_tpu/ops/ncc_sweep_mxu.py:68"),
+        dict(name="cost_volume_bf16", route="cuda", source=src + "ncc_sweep.cu",
+             replaces="reconstruction_tpu/ops/refine_pallas.py:225"),
+        dict(name="refine_sweeps_fused_bf16", route="cuda", source=src + "refine.cu",
+             replaces="reconstruction_tpu/ops/refine_pallas.py:225"),
     ]
+    # Launches on each kernel's main path: the myself pair (K1, K3, K2), BA
+    # (K4), the tensor-core sweep's entry point (K5), and the dome's pair
+    # (0, 1) with the bfloat16 cost window (K3's and K2's bfloat16 instances).
+    bf16_pair = dome["pair_ab"]["bfloat16"]["launches"]
     path_launches = dict(sl["launches"], ba_coupling=ba["launches"],
-                         ncc_sweep_mxu=mxu["launches"])
+                         ncc_sweep_mxu=mxu["launches"],
+                         cost_volume_bf16=bf16_pair["cost_volume_bf16"],
+                         refine_sweeps_fused_bf16=bf16_pair["refine_sweeps_fused_bf16"])
     for row in rows:
         row["launches"] = path_launches[row["name"]]
         row.update({k: kern[row["name"]][k]
                     for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")})
+        # K3 and K2 were also held against their plain versions at the dome's
+        # finest level, on the pair whose bfloat16 launches the line reports.
+        if row["name"] in dome["kernel_checks"]:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     dome["kernel_checks"][row["name"]]["max_abs_err"])
         # The wrapper's whole call where it reads a check back from the card.
         if "call_ms" in kern[row["name"]]:
             row["call_ms"] = kern[row["name"]]["call_ms"]
@@ -2410,7 +2767,7 @@ def main() -> int:
         json.dump(dict(card=card, kernels=rows, kernel_times=kern, slice=sl,
                        small=small, mxu_path=mxu, ba=ba, front_end=front,
                        reconstruct=recon, cli=cli, parallel=par, video=vid,
-                       satellites=sat,
+                       satellites=sat, dome=dome,
                        build_log=_build.build_log), f, indent=1, default=str)
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -45,10 +45,14 @@ class StereoParams:
     mask_erode_base: int = 3
     # Extra erosion before triangulation, fraction of image height.
     cloud_erode_frac: float = 0.02
-    # The reference's choice between its refine code paths, which give
-    # equal results; the port accepts it and ignores it.
+    # The reference's choice between its refine code paths ("auto",
+    # "pallas", "xla"), equal in float32; the port reads it only to apply
+    # refine_cv_dtype where the reference's path would.
     refine_impl: str = "auto"
-    # Cost-window dtype of the refine: only "float32" is ported.
+    # Cost-volume dtype of the refine: "float32", or "bfloat16" (the
+    # reference's bfloat16 Pallas window: inexact against float32, half
+    # the volume's bytes; applied where `stereo/pipeline.refine_volume_dtype`
+    # says the reference's pair path would).
     refine_cv_dtype: str = "float32"
     # The reference's window-extraction strategy (equal results); ignored.
     refine_extract: str = "chain"

@@ -11,6 +11,7 @@
 // source operator, in the reference's order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +60,16 @@ __device__ __forceinline__ int rtt_pack_px(const float* __restrict__ img, int y,
   for (int c = 0; c < 4; ++c)
     w |= ((unsigned)rtt_int8(v[c], bad) & 0xffu) << (8 * c);
   return (int)w;
+}
+
+// Cost-volume elements (K3 writes, K2 reads): float32, or bfloat16 that K3
+// rounds to nearest even from the float32 score (__float2bfloat16_rn, as
+// jnp.astype(bfloat16) and torch's .to(torch.bfloat16) round).  K2 widens
+// a bfloat16 tap to float32 exactly: its bits are the float's top half.
+__device__ __forceinline__ float rtt_ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float rtt_ldg_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
 }
 
 // An integer below 2^22 in magnitude as float, exactly: two operations on

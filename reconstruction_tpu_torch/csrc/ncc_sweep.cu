@@ -54,9 +54,11 @@
 // `ops/ncc_sweep.sweep_plan` mirrors the rule for measurements).
 //
 // What bounds K3.  It must write H*s_cap*W floats (1.26 GB at
-// 1920x1280x128, ~0.38 ms at 3.35 TB/s), which makes it a device-memory
-// write stream, as long as its 27 C multiply-adds per filled slot stay off
-// the load path.  K3's design: one block per (2-row chunk of one band, up
+// 1920x1280x128, ~0.38 ms at 3.35 TB/s; half of that in bfloat16, the TPU
+// refine's `cv_dtype="bfloat16"`, whose cast at
+// reconstruction_tpu/ops/refine_pallas.py:225 K3 performs as it stores),
+// which makes it a device-memory write stream, as long as its 27 C
+// multiply-adds per filled slot stay off the load path.  K3's design: one block per (2-row chunk of one band, up
 // to 640 columns: up to five warps side by side, 128 columns each), so the
 // band's base and filled range are the block's.  It stages once, in shared
 // memory, R as int8x4 words over its rows plus one above and below and its
@@ -73,7 +75,9 @@
 // are fixed (s_cap <= 128), so a column's rows are immediate offsets.
 // Unfilled slots get 0.5.  What still holds it back is the store stream
 // itself: the same launch with nothing to fill takes ~1.3 times a plain
-// fill of the volume (chip_smoke.py's K3 yardsticks).
+// fill of the volume (chip_smoke.py's K3 yardsticks).  The volume's
+// element type is a template parameter: float32, or bfloat16 rounded from
+// the same float32 score at the store (8-byte stores; 0.5 is exact).
 //
 // Exactness.  Images are centered uint8 values, so the products and box
 // sums are integers below 2^22 and exact in any order: K1 and K3 sum them
@@ -662,6 +666,8 @@ constexpr int K3_MP = skewed_pitch(K3_TX + K3_MAX_S - 1);
 constexpr int K3_SMEM_WORDS =
     (K3_TY + 2) * K3_RP + 2 * K3_TY * K3_MP + 2 * K3_TY * K3_TX;
 
+// Four consecutive volume entries of one (row, slot) line: one 16-byte
+// store for float32, one 8-byte store of four bfloat16 for bfloat16.
 __device__ __forceinline__ void store4(float* __restrict__ row, int x, int W,
                                        float4 v) {
   if ((W & 3) == 0 && x + 3 < W) {
@@ -672,6 +678,23 @@ __device__ __forceinline__ void store4(float* __restrict__ row, int x, int W,
   }
 }
 
+__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ row, int x,
+                                       int W, float4 v) {
+  const float e[4] = {v.x, v.y, v.z, v.w};
+  if ((W & 3) == 0 && x + 3 < W) {
+    unsigned short h[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h[q] = __bfloat16_as_ushort(__float2bfloat16_rn(e[q]));
+    *reinterpret_cast<uint2*>(row + x) =
+        make_uint2(h[0] | ((unsigned)h[1] << 16), h[2] | ((unsigned)h[3] << 16));
+  } else {
+    for (int q = 0; q < 4 && x + q < W; ++q) row[x + q] = __float2bfloat16_rn(e[q]);
+  }
+}
+
+// V: the volume's element type, float or __nv_bfloat16 (the scores are
+// float32 either way; only the store rounds).
+template <typename V>
 __global__ void __launch_bounds__(32 * K3_MAX_NX)
 cost_volume_kernel(const float* __restrict__ L, const float* __restrict__ R,
                    const float* __restrict__ nmuL,
@@ -680,7 +703,7 @@ cost_volume_kernel(const float* __restrict__ L, const float* __restrict__ R,
                    const float* __restrict__ invR,
                    const int* __restrict__ base_b,
                    const int* __restrict__ lo_b,
-                   const int* __restrict__ hi_b, float* __restrict__ cv,
+                   const int* __restrict__ hi_b, V* __restrict__ cv,
                    int* __restrict__ off_grid, int H, int W, int C, int S,
                    int band, int chunks) {
   extern __shared__ __align__(16) int k3_smem[];
@@ -852,17 +875,19 @@ RTT_API int rtt_ncc_sweep(const void* L, const void* R, const void* nmuL,
   return static_cast<int>(err);
 }
 
-RTT_API int rtt_cost_volume(const void* L, const void* R, const void* nmuL,
-                            const void* invL, const void* muR,
-                            const void* invR, const void* base_b,
-                            const void* lo_b, const void* hi_b, void* cv,
-                            void* off_grid, int H, int W, int C, int S,
-                            int band, void* stream) {
+namespace {
+
+template <typename V>
+int cost_volume_launch(const void* L, const void* R, const void* nmuL,
+                       const void* invL, const void* muR, const void* invR,
+                       const void* base_b, const void* lo_b, const void* hi_b,
+                       void* cv, void* off_grid, int H, int W, int C, int S,
+                       int band, void* stream) {
   if (C < 1 || C > 4 || S < 1 || S > K3_MAX_S)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(int) * K3_SMEM_WORDS;
   cudaError_t err = cudaFuncSetAttribute(
-      cost_volume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cost_volume_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // Warps side by side along x, as few blocks per row as K3_MAX_NX
@@ -873,12 +898,35 @@ RTT_API int rtt_cost_volume(const void* L, const void* R, const void* nmuL,
   const int nb = (H + band - 1) / band;
   const int chunks = (band + K3_TY - 1) / K3_TY;
   const dim3 grid((W + K3_WX * nx - 1) / (K3_WX * nx), nb * chunks);
-  cost_volume_kernel<<<grid, 32 * nx, smem, rtt_stream(stream)>>>(
+  cost_volume_kernel<V><<<grid, 32 * nx, smem, rtt_stream(stream)>>>(
       static_cast<const float*>(L), static_cast<const float*>(R),
       static_cast<const float*>(nmuL), static_cast<const float*>(invL),
       static_cast<const float*>(muR), static_cast<const float*>(invR),
       static_cast<const int*>(base_b), static_cast<const int*>(lo_b),
-      static_cast<const int*>(hi_b), static_cast<float*>(cv),
+      static_cast<const int*>(hi_b), static_cast<V*>(cv),
       static_cast<int*>(off_grid), H, W, C, S, band, chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+RTT_API int rtt_cost_volume(const void* L, const void* R, const void* nmuL,
+                            const void* invL, const void* muR,
+                            const void* invR, const void* base_b,
+                            const void* lo_b, const void* hi_b, void* cv,
+                            void* off_grid, int H, int W, int C, int S,
+                            int band, void* stream) {
+  return cost_volume_launch<float>(L, R, nmuL, invL, muR, invR, base_b, lo_b,
+                                   hi_b, cv, off_grid, H, W, C, S, band, stream);
+}
+
+RTT_API int rtt_cost_volume_bf16(const void* L, const void* R, const void* nmuL,
+                                 const void* invL, const void* muR,
+                                 const void* invR, const void* base_b,
+                                 const void* lo_b, const void* hi_b, void* cv,
+                                 void* off_grid, int H, int W, int C, int S,
+                                 int band, void* stream) {
+  return cost_volume_launch<__nv_bfloat16>(L, R, nmuL, invL, muR, invR, base_b,
+                                           lo_b, hi_b, cv, off_grid, H, W, C, S,
+                                           band, stream);
 }

@@ -7,10 +7,10 @@
 // that it equals.
 //
 // What bounds it on this card.  The function needs per pixel and sweep
-// three 4-byte cost taps of the pixels that can move and about 70 flops
-// there (two exps and three IEEE divisions included); per call it reads d,
-// j0, jref (4 bytes) and inner (1) and writes d (4) once, and each volume
-// tap that one of its sweeps reads once: the anchors rarely move, so six
+// three 4-byte cost taps (2-byte in bfloat16) of the pixels that can move
+// and about 70 flops there (two exps and three IEEE divisions included);
+// per call it reads d, j0, jref (4 bytes) and inner (1) and writes d (4)
+// once, and each volume tap that one of its sweeps reads once: the anchors rarely move, so six
 // sweeps at 1920x1280 read 28 M taps but only 6.6 M distinct ones
 // (chip_smoke.py counts them).  With the 42 MB of maps that is ~68 MB a
 // launch of six sweeps: device memory bounds it, ~0.020 ms a launch.  One
@@ -39,9 +39,15 @@
 //
 // The taps are read by direct index from the volume, which equals the TPU
 // kernel's 32-way select chain exactly (each select returns a volume value
-// or the neutral 0.5).  T sweeps of one launch are bit-equal to T launches
-// of one sweep: each sweep is the same per-pixel arithmetic on the same
-// neighbour values.
+// or the neutral 0.5).  The volume's element type is a template parameter:
+// float32, or bfloat16 (the TPU kernel's `cv_dtype="bfloat16"` window,
+// cast at reconstruction_tpu/ops/refine_pallas.py:225 and widened at :96).
+// Rounding commutes with selection, so taps of a bfloat16 volume equal the
+// TPU kernel's taps of its bfloat16 window; each is widened to float32
+// exactly and everything after the load is the float32 arithmetic below.
+// A bfloat16 volume halves the tap bytes; shared memory does not change.
+// T sweeps of one launch are bit-equal to T launches of one sweep: each
+// sweep is the same per-pixel arithmetic on the same neighbour values.
 //
 // Numerics: the reference's op order, one IEEE operation per operator
 // (--fmad=false), IEEE division, and the reference's rounding where
@@ -81,18 +87,20 @@ __device__ __forceinline__ float exp_xla(float x) {
 }
 
 // Tap at window slot jj of a pixel whose volume column starts at cvp
-// (slot k at cvp[k * W]).
-__device__ __forceinline__ float tap(const float* __restrict__ cvp, int j0,
-                                     int jj, int S, int W) {
+// (slot k at cvp[k * W]); V is float or __nv_bfloat16, widened exactly.
+template <typename V>
+__device__ __forceinline__ float tap(const V* __restrict__ cvp, int j0, int jj,
+                                     int S, int W) {
   const int k = j0 + jj;
-  return (jj >= 0 && jj < MINI && k >= 0 && k < S) ? __ldg(cvp + (size_t)k * W)
-                                                    : 0.5f;
+  return (jj >= 0 && jj < MINI && k >= 0 && k < S)
+             ? rtt_ldg_f32(cvp + (size_t)k * W)
+             : 0.5f;
 }
 
 // The three parabola taps of a pixel with value dc, around its anchor
 // trunc(dc - 1.5).
-__device__ __forceinline__ void refine_taps(float dc,
-                                            const float* __restrict__ cvp,
+template <typename V>
+__device__ __forceinline__ void refine_taps(float dc, const V* __restrict__ cvp,
                                             int jb, float jr, int S, int W,
                                             float xi[3]) {
   const float c0 = truncf(dc - 1.5f);
@@ -145,9 +153,10 @@ size_t refine_smem_bytes(Tile t, int T) {
   return (size_t)(t.tx + 2 * T) * (t.ty + 2 * T) * 17;
 }
 
+template <typename V>
 __global__ void __launch_bounds__(K2_THREADS, 2)
 refine_sweeps_kernel(const float* __restrict__ d, float* __restrict__ out,
-                     const float* __restrict__ cv, const int* __restrict__ j0,
+                     const V* __restrict__ cv, const int* __restrict__ j0,
                      const float* __restrict__ jref,
                      const uint8_t* __restrict__ inner, float ws, int H, int W,
                      int S, int T, int TX, int TY) {
@@ -249,24 +258,40 @@ Tile refine_tile(int H, int W) {
   return tiles[4];
 }
 
+template <typename V>
+int refine_sweeps_launch(const void* d, void* out, const void* cv,
+                         const void* j0, const void* jref, const void* inner,
+                         float ws, int H, int W, int S, int T, void* stream) {
+  if (T < 1 || T > K2_MAX_T) return static_cast<int>(cudaErrorInvalidValue);
+  const Tile t = refine_tile(H, W);
+  const size_t smem = refine_smem_bytes(t, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      refine_sweeps_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((W + t.tx - 1) / t.tx, (H + t.ty - 1) / t.ty);
+  refine_sweeps_kernel<V><<<grid, K2_THREADS, smem, rtt_stream(stream)>>>(
+      static_cast<const float*>(d), static_cast<float*>(out),
+      static_cast<const V*>(cv), static_cast<const int*>(j0),
+      static_cast<const float*>(jref), static_cast<const uint8_t*>(inner), ws,
+      H, W, S, T, t.tx, t.ty);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 RTT_API int rtt_refine_sweeps(const void* d, void* out, const void* cv,
                               const void* j0, const void* jref,
                               const void* inner, float ws, int H, int W,
                               int S, int T, void* stream) {
-  if (T < 1 || T > K2_MAX_T) return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = refine_tile(H, W);
-  const size_t smem = refine_smem_bytes(t, T);
-  cudaError_t err = cudaFuncSetAttribute(
-      refine_sweeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + t.tx - 1) / t.tx, (H + t.ty - 1) / t.ty);
-  refine_sweeps_kernel<<<grid, K2_THREADS, smem, rtt_stream(stream)>>>(
-      static_cast<const float*>(d), static_cast<float*>(out),
-      static_cast<const float*>(cv), static_cast<const int*>(j0),
-      static_cast<const float*>(jref), static_cast<const uint8_t*>(inner), ws,
-      H, W, S, T, t.tx, t.ty);
-  return static_cast<int>(cudaGetLastError());
+  return refine_sweeps_launch<float>(d, out, cv, j0, jref, inner, ws, H, W, S,
+                                     T, stream);
+}
+
+RTT_API int rtt_refine_sweeps_bf16(const void* d, void* out, const void* cv,
+                                   const void* j0, const void* jref,
+                                   const void* inner, float ws, int H, int W,
+                                   int S, int T, void* stream) {
+  return refine_sweeps_launch<__nv_bfloat16>(d, out, cv, j0, jref, inner, ws, H,
+                                             W, S, T, stream);
 }

@@ -46,7 +46,9 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "rtt_ncc_sweep": [_P] * 13 + [_I] * 4 + [_P],
     "rtt_cost_volume": [_P] * 11 + [_I] * 5 + [_P],
+    "rtt_cost_volume_bf16": [_P] * 11 + [_I] * 5 + [_P],
     "rtt_refine_sweeps": [_P] * 6 + [_F] + [_I] * 4 + [_P],
+    "rtt_refine_sweeps_bf16": [_P] * 6 + [_F] + [_I] * 4 + [_P],
     "rtt_ba_coupling": [_P] * 3 + [_I] * 4 + [_P],
     "rtt_ncc_sweep_mxu": [_P] * 13 + [_I] * 8 + [_LL, _P],
     "rtt_ncc_sweep_mxu_layout": [_I, _I, _P],

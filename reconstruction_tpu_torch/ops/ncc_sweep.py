@@ -4,7 +4,8 @@ PyTorch version.
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each
-wrapper counts its launches in a plain integer attribute (`.launches`).
+wrapper counts its launches in its `.launches` attribute: K1's a plain
+integer, K3's a Counter keyed by the C entry (one for each volume type).
 
 Layouts are the reference's: images (H, W, C) float32, centered on the
 uint8 grid (value - 128); per-pixel maps (H, W).  The cost volume is
@@ -15,6 +16,7 @@ addresses, and K3 writes it along x.
 
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
 import torch
@@ -222,7 +224,8 @@ ncc_sweep.launches = 0
 # ---------------------------------------------------------------------------
 
 def cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
-                      s_cap: int, band: int) -> torch.Tensor:
+                      s_cap: int, band: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch banded 3x3 cost volume.
 
     cv[y, j, x] = (1 - NCC3x3(x, x + s)) / 2 for s = base_b[y // band] + j
@@ -230,7 +233,11 @@ def cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
     ascending order at slot clamp(s - base, 0, s_cap - 1), as the
     reference's clamped `dynamic_update_slice`: a band whose range lies
     wholly past its slots (|disparity| beyond the image width) leaves its
-    last shift in the edge slot."""
+    last shift in the edge slot.  ``dtype`` bfloat16: the float32 volume
+    rounded to nearest even (the TPU refine's bfloat16 window)."""
+    if dtype != torch.float32:
+        return cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b,
+                                 hi_b, s_cap, band).to(dtype)
     H, W, C = L.shape
     dev = L.device
     cv = torch.full((H, s_cap, W), 0.5, dtype=torch.float32, device=dev)
@@ -260,24 +267,33 @@ def cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
 
 
 MAX_SLOTS = 128   # K3 keeps a band's filled range (at most s_cap shifts) in shared memory
+# The volume's element types, each with K3's C entry.
+VOLUME_ENTRIES = {torch.float32: "rtt_cost_volume",
+                  torch.bfloat16: "rtt_cost_volume_bf16"}
 
 
 def cost_volume(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
-                s_cap: int, band: int) -> torch.Tensor:
+                s_cap: int, band: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K3 on CUDA tensors, the plain volume on CPU tensors.
 
     L, R: (H, W, C) f32 centered images; nmuL, invL, muR, invR: (H, W)
     radius-1 moments (nmuL = 9C * mean); base_b, lo_b, hi_b: (nb,) int32
-    per-band slot base and filled shift range.  Returns (H, s_cap, W) f32.
+    per-band slot base and filled shift range.  Returns (H, s_cap, W) of
+    ``dtype``: float32, or bfloat16, which K3 rounds from the float32
+    scores as it stores them.
     The kernel sums the window products in int8 x int32, exact for images
     on the integer grid [-128, 127] (centered uint8 values); it flags any
     value it reads off that grid, and the wrapper then raises (reading the
     flag back waits for the kernel).  It takes at most 4 channels and
     MAX_SLOTS slots.
     """
+    if dtype not in VOLUME_ENTRIES:
+        raise TypeError(f"cost_volume: a {dtype} volume; the kernel writes "
+                        f"{list(VOLUME_ENTRIES)}")
     if _dispatch(L):
         return cost_volume_plain(L, R, nmuL, invL, muR, invR, base_b, lo_b,
-                                 hi_b, s_cap, band)
+                                 hi_b, s_cap, band, dtype)
     H, W, C = L.shape
     nb = -(-H // band)
     f32, i32 = torch.float32, torch.int32
@@ -288,14 +304,15 @@ def cost_volume(L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b,
     if not (1 <= C <= 4 and 1 <= s_cap <= MAX_SLOTS):
         raise ValueError(f"cost_volume: {C} channels, {s_cap} slots; the "
                          f"kernel takes 1..4 and 1..{MAX_SLOTS}")
-    cv = torch.empty((H, s_cap, W), dtype=f32, device=dev)
+    cv = torch.empty((H, s_cap, W), dtype=dtype, device=dev)
     off_grid = torch.zeros(1, dtype=i32, device=dev)
-    _build.launch("rtt_cost_volume", *[a.data_ptr() for a in (
+    entry = VOLUME_ENTRIES[dtype]
+    _build.launch(entry, *[a.data_ptr() for a in (
         L, R, nmuL, invL, muR, invR, base_b, lo_b, hi_b, cv, off_grid)],
         H, W, C, s_cap, band)
-    cost_volume.launches += 1
+    cost_volume.launches[entry] += 1
     check_off_grid("cost_volume", off_grid)
     return cv
 
 
-cost_volume.launches = 0
+cost_volume.launches = collections.Counter()   # by C entry

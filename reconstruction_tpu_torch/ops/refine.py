@@ -10,11 +10,14 @@ and ``jref``, the anchor trunc(d - 1.5) at extraction.  A tap at window
 slot jj reads cv[y, j0 + jj, x] when 0 <= jj < 32 and the slot lies in
 the volume, and the neutral 0.5 otherwise, which is exactly what the
 reference's select chain returns.  The volume is slot-major,
-(H, s_cap, W), so that neighbouring pixels' taps lie side by side.
+(H, s_cap, W), so that neighbouring pixels' taps lie side by side.  It is
+float32, or bfloat16 (the reference's `cv_dtype="bfloat16"` window: the
+taps are widened to float32 exactly before any arithmetic).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
 import torch
@@ -28,6 +31,9 @@ from reconstruction_tpu_torch.utils.fp import exp_xla, fma32
 MINI = 32     # window slots (the reference's mini volume)
 CENTER = 16   # window slot of the center candidate at extraction
 SWEEPS_PER_LAUNCH = 6   # T: sweeps a K2 launch runs (measured on the H100)
+# The volume's element types, each with K2's C entry.
+SWEEP_ENTRIES = {torch.float32: "rtt_refine_sweeps",
+                 torch.bfloat16: "rtt_refine_sweeps_bf16"}
 
 
 def window_anchors(d: torch.Tensor, base: torch.Tensor
@@ -42,7 +48,8 @@ def window_anchors(d: torch.Tensor, base: torch.Tensor
 def refine_sweep_plain(d, cv, j0, jref, inner, ws: float) -> torch.Tensor:
     """One sweep in plain PyTorch: the reference's `_refine_math` over
     taps read by direct index, rounded as the reference compiles it (its
-    exp, and a fused multiply-add in each of the two blend numerators)."""
+    exp, and a fused multiply-add in each of the two blend numerators).
+    Taps of a bfloat16 volume are widened to float32 (exactly) first."""
     S = cv.shape[1]
     nm = float(NOMATCH)
     dN = shifted(d, -1, 0, fill=nm)
@@ -59,7 +66,7 @@ def refine_sweep_plain(d, cv, j0, jref, inner, ws: float) -> torch.Tensor:
         jj = j + off
         k = j0 + jj
         ok = (jj >= 0) & (jj < MINI) & (k >= 0) & (k < S)
-        v = torch.gather(cv, 1, k.clamp(0, S - 1).long()[:, None])[:, 0]
+        v = torch.gather(cv, 1, k.clamp(0, S - 1).long()[:, None])[:, 0].float()
         taps.append(torch.where(ok, v, half))
     xi0, xi1, xi2 = taps
 
@@ -103,15 +110,19 @@ def refine_sweeps_fused(d, cv, j0, jref, inner, ws: float, n: int
     at most T = SWEEPS_PER_LAUNCH sweeps each; the plain sweeps on CPU
     tensors.
 
-    d: (H, W) f32; cv: (H, s_cap, W) f32; j0: (H, W) int32; jref: (H, W)
-    f32; inner: (H, W) bool (valid pixels here update).  Returns the new
-    (H, W) disparity (d itself when n is 0)."""
+    d: (H, W) f32; cv: (H, s_cap, W) f32 or bf16 (K2's instance for each,
+    its launches counted by C entry in ``launches``); j0: (H, W) int32;
+    jref: (H, W) f32; inner: (H, W) bool (valid pixels here update).
+    Returns the new (H, W) disparity (d itself when n is 0)."""
+    if cv.dtype not in SWEEP_ENTRIES:
+        raise TypeError(f"refine_sweeps_fused: a {cv.dtype} volume; the kernel "
+                        f"reads {list(SWEEP_ENTRIES)}")
     if _dispatch(d):
         return refine_sweeps_fused_plain(d, cv, j0, jref, inner, ws, n)
     H, W = d.shape
     S = cv.shape[1]
     dev = _require_cuda("refine_sweeps_fused", [
-        (d, torch.float32, (H, W)), (cv, torch.float32, (H, S, W)),
+        (d, torch.float32, (H, W)), (cv, cv.dtype, (H, S, W)),
         (j0, torch.int32, (H, W)), (jref, torch.float32, (H, W)),
         (inner, torch.bool, (H, W))])
     bufs = [torch.empty((H, W), dtype=torch.float32, device=dev)
@@ -120,15 +131,16 @@ def refine_sweeps_fused(d, cv, j0, jref, inner, ws: float, n: int
     while done < n:
         k = min(SWEEPS_PER_LAUNCH, n - done)
         out = bufs[(done // SWEEPS_PER_LAUNCH) % 2]    # never the buffer it reads
-        _build.launch("rtt_refine_sweeps", *[a.data_ptr() for a in (
+        entry = SWEEP_ENTRIES[cv.dtype]
+        _build.launch(entry, *[a.data_ptr() for a in (
             d, out, cv, j0, jref, inner)], float(ws), H, W, S, k)
-        refine_sweeps_fused.launches += 1
+        refine_sweeps_fused.launches[entry] += 1
         d = out
         done += k
     return d
 
 
-refine_sweeps_fused.launches = 0
+refine_sweeps_fused.launches = collections.Counter()   # by C entry
 
 
 def refine_sweep(d, cv, j0, jref, inner, ws: float) -> torch.Tensor:

@@ -33,7 +33,7 @@ from reconstruction_tpu_torch.stereo.constraints import (
 from reconstruction_tpu_torch.stereo.margins import Margins, find_margin
 from reconstruction_tpu_torch.stereo.matching import (
     brute_force_match, guided_match, rematch)
-from reconstruction_tpu_torch.stereo.refine import disparity_refine
+from reconstruction_tpu_torch.stereo.refine import disparity_refine, resolve_recenter
 from reconstruction_tpu_torch.stereo.triangulate import (
     PointCloud, disparity_to_cloud)
 
@@ -60,6 +60,28 @@ def _drift(pre: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
     return torch.quantile(mag.flatten(), q)
 
 
+# T of the reference's Pallas refine when it streams a bfloat16 window
+# (`reconstruction_tpu/stereo/pipeline.py:159`).
+_PALLAS_T = 6
+
+
+def refine_volume_dtype(refine_impl: str, refine_cv_dtype: str,
+                        iterations: int, recenter_every: int) -> str:
+    """The cost volume's dtype of one level's refine, where the reference's
+    pair path uses a bfloat16 window: ``refine_cv_dtype`` "bfloat16" with
+    its Pallas refine, which the port's "auto" stands for on every device
+    (its plain versions stand for its kernels), and only where that refine
+    does not fall back to the float32 XLA path (``iterations`` or a
+    positive re-extraction cadence off a multiple of T,
+    `reconstruction_tpu/ops/refine_pallas.py:191-193`)."""
+    if refine_cv_dtype != "bfloat16" or refine_impl not in ("auto", "pallas"):
+        return "float32"
+    every = resolve_recenter(iterations, recenter_every, _PALLAS_T)
+    if iterations % _PALLAS_T or (every > 0 and every % _PALLAS_T):
+        return "float32"
+    return "bfloat16"
+
+
 def match_one_level(
     img0: torch.Tensor,
     img1: torch.Tensor,
@@ -83,14 +105,15 @@ def match_one_level(
     other, like the reference's back-to-back calls; the uniqueness passes
     couple them.
 
-    ``refine_impl`` and ``refine_extract`` chose between TPU code paths
-    that give the same result; they are accepted and ignored.  The
-    inexact bfloat16 cost window (``refine_cv_dtype="bfloat16"``) is not
-    ported."""
-    del refine_impl, refine_extract
-    if refine_cv_dtype != "float32":
-        raise NotImplementedError(
-            f"refine_cv_dtype={refine_cv_dtype!r}: only float32 is ported")
+    ``refine_cv_dtype="bfloat16"`` stores the refine's cost volume in
+    bfloat16 where the reference's Pallas refine streams a bfloat16 window
+    (`refine_volume_dtype`); ``refine_impl`` only gates that, since the
+    reference's float32 code paths give the same result.
+    ``refine_extract`` ("chain" or "tree", equal) is accepted and
+    ignored."""
+    del refine_extract
+    cv_dtype = refine_volume_dtype(refine_impl, refine_cv_dtype, refine_iters,
+                                   recenter_every)
     v0, v1 = valid_mask(mask0), valid_mask(mask1)
     m0, m1 = find_margin(v0, radius), find_margin(v1, radius)
     lanes = ((img0, img1, v0, v1, m0, m1), (img1, img0, v1, v0, m1, m0))
@@ -117,7 +140,7 @@ def match_one_level(
     for (ai, bi, av, bv, am, bm), d in zip(lanes, (d0, d1)):
         d = median_filter(d, av, am, median_iters)
         out = disparity_refine(d, ai, bi, am, refine_iters, ws, s_cap,
-                               recenter_every=recenter_every)
+                               recenter_every=recenter_every, cv_dtype=cv_dtype)
         ds.append(out)
         drifts.append(_drift(d, out))
     d0, d1 = uniqueness_constraint(ds[0], ds[1], m0, m1)

@@ -7,7 +7,11 @@ disparities is built once into a banded cost volume (kernel K3), then
 K2), blending the parabolic subpixel estimate with an anisotropic
 neighbour average.  Semantics are the reference's mini-CV path
 (`_refine_minicv`): costs come from a 32-slot window frozen at the last
-extraction, re-extracted once mid-run by default.
+extraction, re-extracted once mid-run by default.  With
+``cv_dtype="bfloat16"`` the volume is stored in bfloat16 (K3 rounds as it
+writes; K2 widens each tap): the reference's Pallas refine with its
+bfloat16 cost window, which equals this refine on a bfloat16 volume bit
+for bit, since rounding commutes with the window's selection.
 """
 
 from __future__ import annotations
@@ -22,6 +26,15 @@ from reconstruction_tpu_torch.ops.ncc_sweep import cost_volume
 from reconstruction_tpu_torch.ops.refine import refine_sweeps
 from reconstruction_tpu_torch.stereo.margins import Margins, inner_box
 from reconstruction_tpu_torch.stereo.matching import _centered, ncc_moments
+
+# refine_cv_dtype names and the volume's element type.
+CV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def volume_dtype(cv_dtype: str) -> torch.dtype:
+    if cv_dtype not in CV_DTYPES:
+        raise ValueError(f"cv_dtype {cv_dtype!r}: one of {list(CV_DTYPES)}")
+    return CV_DTYPES[cv_dtype]
 
 
 def _band_ranges(disp: torch.Tensor, s_cap: int, band: int, drift: int
@@ -55,30 +68,40 @@ def _banded_cost_volume(
     s_cap: int,
     band: int,
     drift: int = 16,
+    cv_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xi(y, j, x) = (1 - NCC3x3(x, x + base(y) + j)) / 2 for j < s_cap,
     0.5 outside each band's filled range.  Returns (cv (H, s_cap, W),
-    slot-major, the reference's volume with its last two axes swapped;
-    base (H,) int32)."""
+    slot-major, the reference's volume with its last two axes swapped, in
+    ``cv_dtype``; base (H,) int32)."""
     H, W = disp.shape
     base_b, lo_b, hi_b = _band_ranges(disp.float(), s_cap, band, drift)
-    cv = band_volume(imgL, imgR, base_b, lo_b, hi_b, s_cap, band)
+    cv = band_volume(imgL, imgR, base_b, lo_b, hi_b, s_cap, band, cv_dtype)
     base = base_b.repeat_interleave(band)[:H]
     return cv, base
 
 
 def band_volume(imgL: torch.Tensor, imgR: torch.Tensor, base_b: torch.Tensor,
                 lo_b: torch.Tensor, hi_b: torch.Tensor, s_cap: int,
-                band: int) -> torch.Tensor:
+                band: int, cv_dtype: str = "float32") -> torch.Tensor:
     """The cost volume (K3) of the images' rows for the given per-band
-    slot bases and filled shift ranges (`_band_ranges`)."""
+    slot bases and filled shift ranges (`_band_ranges`), built in
+    ``cv_dtype`` by K3 itself (no float32 volume is written first)."""
+    return cost_volume(*volume_args(imgL, imgR, base_b, lo_b, hi_b, s_cap, band),
+                       volume_dtype(cv_dtype))
+
+
+def volume_args(imgL: torch.Tensor, imgR: torch.Tensor, base_b: torch.Tensor,
+                lo_b: torch.Tensor, hi_b: torch.Tensor, s_cap: int,
+                band: int) -> tuple:
+    """`cost_volume`'s positional arguments for `band_volume`: the centered
+    images, their radius-1 moments and the band ranges."""
     L, R = _centered(imgL), _centered(imgR)
     momL = ncc_moments(L, 1)
     momR = ncc_moments(R, 1)
-    return cost_volume(L, R, (momL.n * momL.mean).contiguous(),
-                       momL.inv_norm.contiguous(), momR.mean.contiguous(),
-                       momR.inv_norm.contiguous(), base_b.contiguous(),
-                       lo_b.contiguous(), hi_b.contiguous(), s_cap, band)
+    return (L, R, (momL.n * momL.mean).contiguous(), momL.inv_norm.contiguous(),
+            momR.mean.contiguous(), momR.inv_norm.contiguous(), base_b.contiguous(),
+            lo_b.contiguous(), hi_b.contiguous(), s_cap, band)
 
 
 def resolve_recenter(iterations: int, recenter_every: int, t: int = 6) -> int:
@@ -103,13 +126,17 @@ def disparity_refine(
     band: int = 64,
     drift: int = 16,
     recenter_every: int = 0,
+    cv_dtype: str = "float32",
 ) -> torch.Tensor:
     """Run the refinement loop; returns float32 disparity.  NOMATCH pixels
-    and pixels outside the margin box inset by one never change."""
+    and pixels outside the margin box inset by one never change.
+    ``cv_dtype``: the cost volume's element type, "float32" or "bfloat16"
+    (the reference's `disparity_refine_pallas(cv_dtype="bfloat16")`)."""
     recenter_every = resolve_recenter(iterations, recenter_every)
     H, W = disp.shape
     band = min(band, H)
     disp = disp.float()
-    cv, base = _banded_cost_volume(imgL, imgR, disp, s_cap, band, drift=drift)
+    cv, base = _banded_cost_volume(imgL, imgR, disp, s_cap, band, drift=drift,
+                                   cv_dtype=cv_dtype)
     inner = inner_box(m, H, W, inset=1)
     return refine_sweeps(disp, cv, base, inner, iterations, ws, recenter_every)

@@ -4,6 +4,8 @@
   * `CHIP_PEAKS`: the card's published peaks, the one table that
     `chip_smoke.py` reads;
   * `resolve_chip(device)`: the device's name mapped onto a table entry;
+  * `card_line(device)`: the card's name and power limit, as nvidia-smi
+    reports them, to write beside every number taken on it;
   * `trace(path)`: `torch.profiler` over a block, written as a Chrome
     trace;
   * `KernelCost.utilization`: a measured time against those peaks.
@@ -12,6 +14,7 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 from dataclasses import dataclass
 from typing import Dict, Iterator, Tuple
 
@@ -37,6 +40,19 @@ def resolve_chip(device="cuda") -> Tuple[str, str]:
     if "h100" in kind.lower().replace(" ", ""):
         return "h100", kind
     return "h100", f"{kind} (unknown; h100 peaks assumed)"
+
+
+def card_line(device="cuda") -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` of
+    the first card ("cpu" for a CPU device); raises if nvidia-smi fails."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

@@ -66,6 +66,7 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.parallel.poisson_sharded\n"
         "import reconstruction_tpu_torch.parallel.production\n"
         "import reconstruction_tpu_torch.parallel.dryrun\n"
+        "import reconstruction_tpu_torch.tools.demo_dome\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'reconstruction_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
@@ -135,6 +136,10 @@ NEW_ENTRY_POINTS = [
     ("reconstruction_tpu_torch.parallel.multihost", "make_pod_mesh"),
     ("reconstruction_tpu_torch.parallel.dryrun", "dryrun"),
     ("reconstruction_tpu_torch.parallel.launch", "run_local"),
+    ("reconstruction_tpu_torch.tools.demo_dome", "main"),
+    ("reconstruction_tpu_torch.tools.demo_dome", "run_dome"),
+    ("reconstruction_tpu_torch.tools.demo_dome", "dome_pairs"),
+    ("reconstruction_tpu_torch.tools.demo_dome", "reconstruct_sharded"),
 ]
 
 

@@ -5,6 +5,8 @@ without a GPU (there is no interpret mode for a CUDA kernel).  On the
 card (whose machine has no jax for tests/conftest.py):
 python -m pytest --noconftest tests/test_torch_kernels.py -q"""
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -112,13 +114,15 @@ def test_k3_cost_volume_equals_plain(dev):
     m, mR = moments(L, 1), moments(R, 1)
     args = (L, R, (m.n * m.mean).contiguous(), m.inv_norm, mR.mean,
             mR.inv_norm, base_b, lo_b, hi_b, 64, 48)
-    n0 = K.cost_volume.launches
+    n0 = K.cost_volume.launches["rtt_cost_volume"]
     cvk = K.cost_volume(*args)
-    assert K.cost_volume.launches == n0 + 1
+    assert K.cost_volume.launches["rtt_cost_volume"] == n0 + 1
     assert cvk.shape == (H, 64, W)
     assert torch.equal(cvk, K.cost_volume_plain(*args))
     with pytest.raises(ValueError):
         K.cost_volume(L + 0.5, *args[1:])
+    with pytest.raises(TypeError):    # a float16 volume
+        K.cost_volume(*args, dtype=torch.float16)
 
 
 def test_k2_refine_sweeps_equal_plain(dev):
@@ -154,9 +158,64 @@ def test_k2_fused_sweeps_equal_plain(dev, n):
                     torch.tensor(float(NOMATCH), device=dev))
     cv, base = _banded_cost_volume(L + 128, R + 128, d, 64, 48)
     j0, jref = K2.window_anchors(d, base)
-    n0 = K2.refine_sweeps_fused.launches
+    n0 = K2.refine_sweeps_fused.launches["rtt_refine_sweeps"]
     dk = K2.refine_sweeps_fused(d, cv, j0, jref, valid, 0.03, n)
-    assert K2.refine_sweeps_fused.launches == n0 + -(-n // K2.SWEEPS_PER_LAUNCH)
+    assert (K2.refine_sweeps_fused.launches["rtt_refine_sweeps"]
+            == n0 + -(-n // K2.SWEEPS_PER_LAUNCH))
+    dp = K2.refine_sweeps_fused_plain(d, cv, j0, jref, valid, 0.03, n)
+    assert torch.equal(dk, dp)
+    assert bool((dk != d)[valid].float().mean() > 0.3)
+    rk = K2.refine_sweeps(d, cv, base, valid, 2 * n, 0.03, n)
+    rp = d
+    for _ in range(2):
+        ja, jb = K2.window_anchors(rp, base)
+        rp = K2.refine_sweeps_fused_plain(rp, cv, ja, jb, valid, 0.03, n)
+    assert torch.equal(rk, rp)
+
+
+def test_k3_cost_volume_bf16_equals_plain(dev):
+    """K3's bfloat16 instance: the float32 scores rounded at the store,
+    bit-equal to the plain float32 volume cast to bfloat16, also on a row
+    width off a multiple of 4 (its element stores)."""
+    from reconstruction_tpu_torch.ops import ncc_sweep as K
+    from reconstruction_tpu_torch.stereo.refine import _band_ranges
+    for W in (160, 157):
+        L, R, valid, moments = _scene(dev, W=W)
+        H = valid.shape[0]
+        d = torch.where(valid, torch.full((H, W), 12.0, device=dev),
+                        torch.tensor(float(NOMATCH), device=dev))
+        m, mR = moments(L, 1), moments(R, 1)
+        args = (L, R, (m.n * m.mean).contiguous(), m.inv_norm, mR.mean,
+                mR.inv_norm, *_band_ranges(d, 64, 48, 16), 64, 48)
+        before = dict(K.cost_volume.launches)
+        cvk = K.cost_volume(*args, dtype=torch.bfloat16)
+        assert K.cost_volume.launches - collections.Counter(before) == {
+            "rtt_cost_volume_bf16": 1}
+        assert cvk.dtype == torch.bfloat16 and cvk.shape == (H, 64, W)
+        plain = K.cost_volume_plain(*args, dtype=torch.bfloat16)
+        assert torch.equal(cvk, plain)
+        assert torch.equal(plain, K.cost_volume(*args).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("n", [1, 6, 13])
+def test_k2_fused_sweeps_bf16_equal_plain(dev, n):
+    """K2's bfloat16 instance (taps widened exactly) against the plain
+    sweeps on the same bfloat16 volume, also across a re-extraction."""
+    from reconstruction_tpu_torch.ops import refine as K2
+    from reconstruction_tpu_torch.stereo.refine import _banded_cost_volume
+    L, R, valid, _ = _scene(dev, H=300, W=260)
+    H, W = valid.shape
+    g = torch.Generator(device=dev).manual_seed(n)
+    d = torch.where(valid, 12.0 + torch.randint(-2, 3, (H, W), generator=g,
+                                                device=dev).float(),
+                    torch.tensor(float(NOMATCH), device=dev))
+    cv, base = _banded_cost_volume(L + 128, R + 128, d, 64, 48, cv_dtype="bfloat16")
+    assert cv.dtype == torch.bfloat16
+    j0, jref = K2.window_anchors(d, base)
+    before = dict(K2.refine_sweeps_fused.launches)
+    dk = K2.refine_sweeps_fused(d, cv, j0, jref, valid, 0.03, n)
+    assert K2.refine_sweeps_fused.launches - collections.Counter(before) == {
+        "rtt_refine_sweeps_bf16": -(-n // K2.SWEEPS_PER_LAUNCH)}
     dp = K2.refine_sweeps_fused_plain(d, cv, j0, jref, valid, 0.03, n)
     assert torch.equal(dk, dp)
     assert bool((dk != d)[valid].float().mean() > 0.3)
@@ -191,6 +250,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K2.refine_sweep(d.double(), *args)
     with pytest.raises(ValueError):   # a (H, W, s_cap) volume
         K2.refine_sweeps_fused(d, args[0].permute(0, 2, 1), *args[1:], 6)
+    with pytest.raises(TypeError):    # a float16 volume
+        K2.refine_sweeps_fused(d, args[0].half(), *args[1:], 6)
 
 
 def test_k3_cost_volume_clamped_edge_slots_equal_plain(dev):
