@@ -78,10 +78,17 @@ Phases (any failure raises; the exit code is then non-zero):
      and K2 of each run bit-equal to their plain versions on its finest
      level's inputs (the 2160x128x3840 volume, all 150 sweeps); the
      pair's seconds by stage and a profile of its finest level
- 14. the kernels line, the card line, and last {"ok": true, "device": {...}}
+ 14. the port's headline bench (phase_bench, before the dome): `python -m
+     reconstruction_tpu_torch.bench` in a fresh process at its defaults
+     (the kernel cells, stereo-only, a cold and two timed `reconstruct`s at
+     the bench configuration), its line's keys, value, kernel cells'
+     utilizations <= 1 and mesh gates (the vertex count equal to phase 8's);
+     then `python -m reconstruction_tpu_torch.tools.demo_video` (16 frames
+     of 4 views at 320x240, the JAX tool's gates)
+ 15. the kernels line, the card line, and last {"ok": true, "device": {...}}
 
 Named phases run alone (no kernels line, no result): kernels, slice, small,
-mxu, ba, front, reconstruct, cli, video, satellites, parallel, dome.
+mxu, ba, front, reconstruct, cli, video, satellites, parallel, dome, bench.
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -965,42 +972,6 @@ def phase_mxu_path(card: str) -> dict:
                 profile=prof)
 
 
-def _ba_problem(dev, num_cams=16, num_pts=1 << 16, obs=8, seed=0):
-    """The ba_schur bench size on a 16-camera arc: points in [-1, 1]^3,
-    each seen by `obs` of the cameras, noiseless projections, base poses
-    perturbed by 0.01 (camera 0, the gauge anchor, exact), points by 0.05
-    (tests/test_ba.py:16-54 at scale).  Returns (problem, Rt_true, pts_true)."""
-    import torch
-    from reconstruction_tpu_torch.ba.bundle_adjust import BAProblem
-    from reconstruction_tpu_torch.core.camera import synthetic_rig
-    from reconstruction_tpu_torch.core.rectify import rodrigues_mat
-
-    rng = np.random.default_rng(seed)
-    cams = synthetic_rig(num_cams, span_deg=30.0)
-    K = np.stack([np.asarray(c.K, np.float64) for c in cams])
-    Rt_true = np.stack([np.asarray(c.Rt, np.float64) for c in cams])
-    pts = rng.uniform(-1, 1, size=(num_pts, 3))
-    cam = np.sort(np.argsort(rng.random((num_pts, num_cams)), axis=1)[:, :obs],
-                  axis=1).astype(np.int32)
-    xc = np.einsum("moij,mj->moi", Rt_true[cam][..., :3], pts) + Rt_true[cam][..., 3]
-    uvw = np.einsum("moij,moj->moi", K[cam], xc)
-    uv = uvw[..., :2] / uvw[..., 2:3]
-    Rt0 = Rt_true.copy()
-    for ci in range(1, num_cams):
-        dR = rodrigues_mat(rng.normal(scale=0.01, size=3))
-        Rt0[ci, :, :3] = dR @ Rt_true[ci, :, :3]
-        Rt0[ci, :, 3] = dR @ Rt_true[ci, :, 3] + rng.normal(scale=0.01, size=3)
-    pts0 = pts + rng.normal(scale=0.05, size=pts.shape)
-
-    def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    prob = BAProblem(K=t(K), Rt0=t(Rt0), points0=t(pts0), obs_uv=t(uv),
-                     obs_cam=t(cam, torch.int32),
-                     obs_ok=torch.ones((num_pts, obs), dtype=torch.bool, device=dev))
-    return prob, Rt_true, pts
-
-
 def _aligned_point_error(points: np.ndarray, Rt_true, pts_true) -> np.ndarray:
     """Point errors after the similarity about camera 0's center that the
     free gauge leaves open (tests/test_ba.py:107-113)."""
@@ -1018,12 +989,13 @@ def phase_ba(card: str) -> dict:
     version in its place."""
     import importlib
     import torch
+    from reconstruction_tpu_torch.bench import ba_problem
     from reconstruction_tpu_torch.ops import ba_coupling as K4
     tb = importlib.import_module("reconstruction_tpu_torch.ba.bundle_adjust")
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    prob, Rt_true, pts_true = _ba_problem(dev)
+    prob, Rt_true, pts_true = ba_problem(device=dev)
     log(f"BA problem (16 cams, 65536 points, 8 obs) built in "
         f"{time.perf_counter() - t0:.2f} s")
     runs = []
@@ -1178,14 +1150,12 @@ BENCH_PAIRS = ((0, 1), (2, 3), (4, 5), (7, 6))
 
 
 def bench_config():
-    """The JAX package's bench configuration (`bench.py:69-139`): the myself
-    preset, mls_radius 0.02, a 256^3 Poisson grid, no dedup."""
-    import dataclasses
-    from reconstruction_tpu_torch.config import preset
-    base = preset("myself")
-    return base.replace(cam_pairs=BENCH_PAIRS,
-                        cloud=dataclasses.replace(base.cloud, mls_radius=0.02, dedup=False),
-                        surface=dataclasses.replace(base.surface, grid_resolution=256))
+    """The bench configuration at its 4 pairs, the port's bench's
+    (`reconstruction_tpu_torch.bench.bench_config`, the JAX package's
+    `bench.py:99-125`): the myself preset, mls_radius 0.02, a 256^3 Poisson
+    grid, no dedup; the bench's RECON_BENCH_* knobs, where set, cut it."""
+    from reconstruction_tpu_torch.bench import bench_config as config
+    return config(len(BENCH_PAIRS))
 
 
 def quantized(imgs, masks):
@@ -1716,6 +1686,7 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
     the rank's wall, collective seconds and peak device memory."""
     import torch
     import torch.distributed as dist
+    from reconstruction_tpu_torch.bench import ba_problem
     from reconstruction_tpu_torch.ops import ba_coupling as K4
     from reconstruction_tpu_torch.parallel.distributed_ba import ba_step_sharded
     from reconstruction_tpu_torch.parallel.dryrun import dryrun
@@ -1788,7 +1759,7 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
         s_cap=refine_in["s_cap"], band=refine_in["band"]))
     out["refine"] = _digest(got)
 
-    prob, _, _ = _ba_problem(dev)
+    prob, _, _ = ba_problem(device=dev)
     out["ba"] = {}
     for damping in BA_DAMPINGS:
         poses, points, cost = step(f"ba_step_sharded@{damping:g}", lambda: ba_step_sharded(
@@ -1864,6 +1835,7 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
     import torch
     import torch.distributed as dist
     import chip_smoke
+    from reconstruction_tpu_torch.bench import ba_problem
     from reconstruction_tpu_torch.parallel.distributed_ba import ba_step_sharded
     from reconstruction_tpu_torch.parallel.dryrun import dryrun
     from reconstruction_tpu_torch.parallel.launch import run_local
@@ -1919,7 +1891,7 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
             raise AssertionError("reconstruct(mesh=...) on one rank differs from reconstruct")
         del rec
 
-        prob, Rt_true, pts_true = _ba_problem(dev)
+        prob, Rt_true, pts_true = ba_problem(device=dev)
         zeros = torch.zeros((16, 6), device=dev)
         p1, x1, c1 = tb.ba_step(prob, zeros, prob.points0, 16)
         (p2, x2, c2), ba_s = _timed(lambda: ba_step_sharded(mesh, prob, zeros, prob.points0, 16))
@@ -2138,30 +2110,6 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
 VIDEO_ANGLE_LIMITS = (2.0, 1.0)
 
 
-def orbit_rig(num_cameras: int, span_deg: float, size, frame: int,
-              step_deg: float = 1.5):
-    """`tools/demo_video.py`'s rig at frame ``frame``: the rig rotated by
-    frame * step_deg about the scene's z axis."""
-    from reconstruction_tpu_torch.core.camera import synthetic_rig
-    a = np.radians(frame * step_deg)
-    Rw = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
-                   [0.0, 0.0, 1.0]])
-    cams = []
-    for c in synthetic_rig(num_cameras=num_cameras, radius=8.0, span_deg=span_deg,
-                           focal=size[0] * 1.6, image_size=size):
-        Rt = np.asarray(c.Rt)
-        cams.append(type(c)(K=c.K, Rt=np.concatenate([Rt[:, :3] @ Rw.T, Rt[:, 3:]], 1)))
-    return cams
-
-
-def rig_angle_error(T: np.ndarray, frame: int, step_deg: float = 1.5) -> float:
-    """Degrees between a pose's z rotation and the orbit's: the scene is
-    fixed and the rig turns +step a frame, so the anchor's flow sees
-    -frame * step (`tools/demo_video.py:98-107`)."""
-    e = abs(np.degrees(np.arctan2(T[1, 0], T[0, 0])) + frame * step_deg) % 360
-    return float(min(e, 360 - e))
-
-
 def phase_video(card: str) -> dict:
     """`reconstruct_video` at ROADMAP A9's size: 4 frames of 6 cameras in 3
     pairs at 1280x1920 (the bench configuration's preset), the rig orbiting
@@ -2173,6 +2121,7 @@ def phase_video(card: str) -> dict:
     from reconstruction_tpu_torch.pipeline import video
     from reconstruction_tpu_torch.pipeline.reconstruct import PairInput
     from reconstruction_tpu_torch.utils.synthetic import point_to_surface_rmse, render_view
+    from reconstruction_tpu_torch.tools.demo_video import orbit_rig, pose_error_deg
 
     cfg = bench_config().replace(cam_pairs=((0, 1), (2, 3), (4, 5)))
     size = cfg.finest_size
@@ -2180,7 +2129,7 @@ def phase_video(card: str) -> dict:
 
     def loader(i):
         if i not in frames:
-            cams = orbit_rig(6, 30.0, size, i)
+            cams = orbit_rig(i, size, 6, 30.0)
             (views, s) = _timed(lambda: [render_view(c, size, device="cuda") for c in cams])
             render_s.append(s)
             imgs, masks = quantized([v[0] for v in views], [v[1] for v in views])
@@ -2211,8 +2160,8 @@ def phase_video(card: str) -> dict:
 
     chain = video.reconstruct_video(cfg, loader, 4, reconstruct_frame=lambda c, p: NoMesh(),
                                     depth_hint=8.0, device="cuda")
-    err = [rig_angle_error(r.rig_pose, f) for f, r in enumerate(results)]
-    err_chain = [rig_angle_error(r.rig_pose, f) for f, r in enumerate(chain)]
+    err = [pose_error_deg(r.rig_pose, f) for f, r in enumerate(results)]
+    err_chain = [pose_error_deg(r.rig_pose, f) for f, r in enumerate(chain)]
     rmse = [point_to_surface_rmse(np.asarray(r.mesh_vertices)) for r in results]
     verts = [int(len(r.mesh_vertices)) for r in results]
     log(f"video: 4 frames x 6 views {size[0]}x{size[1]}, {wall:.2f} s wall (render "
@@ -2235,7 +2184,7 @@ def phase_video(card: str) -> dict:
     small = (320, 240)
     gray = []
     for f in (0, 1):
-        cam = orbit_rig(2, 24.0, small, f)[0]
+        cam = orbit_rig(f, small, 2, 24.0)[0]
         gray.append((render_view(cam, small)[0].mean(-1), cam))
     K, Rt = np.asarray(gray[0][1].K), np.asarray(gray[0][1].Rt)
     matches, real_match = {}, video.match_descriptors
@@ -2674,6 +2623,133 @@ def phase_dome(card: str) -> dict:
                 finest_profile=prof)
 
 
+# The keys of the bench's line (the JAX package's `bench.py` line plus
+# "card") and of its parts, and of `demo_video`'s line.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "chip", "card", "matching_s",
+              "total_s", "cold_total_s", "stages_s", "mesh", "host", "all_runs_s",
+              "stereo_only", "kernels", "phase_attempts"}
+BENCH_MESH_KEYS = {"verts", "faces", "cloud_points", "surface_rmse"}
+BENCH_HOST_KEYS = {"rss_mb", "load1", "cpu_over_wall"}
+BENCH_CELLS = ("ncc_sweep", "ncc_sweep_mxu", "refine", "ba_schur")
+BENCH_CELL_KEYS = {"seconds", "gflops_per_s", "flops_util", "hbm_gbps", "hbm_util", "bound"}
+VIDEO_KEYS = {"frames", "views", "size", "wall_s", "per_frame_s", "pose_err_deg_final",
+              "pose_err_deg_max", "mesh_rmse_median", "verts_median", "card"}
+
+
+def run_module(name: str, args: list, timeout: float) -> tuple:
+    """(last stdout line as JSON, wall seconds) of ``python -m`` the port's
+    module ``name`` in a fresh process at the checkout's root; its stderr
+    goes to SCRATCH/<last part of name>.err.  Raises on a non-zero exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", name] + args, capture_output=True,
+                          text=True, timeout=timeout, cwd=here)
+    wall = time.perf_counter() - t0
+    os.makedirs(SCRATCH, exist_ok=True)
+    with open(os.path.join(SCRATCH, name.rsplit(".", 1)[-1] + ".err"), "w") as f:
+        f.write(proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {name} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}\n{proc.stdout[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+
+def bench_reference_verts() -> int:
+    """The mesh's vertex count of one `reconstruct` at the bench
+    configuration, as `phase_reconstruct` runs it (for the bench phase
+    run alone)."""
+    from reconstruction_tpu_torch.pipeline.reconstruct import PairInput, reconstruct
+    cfg = bench_config()
+    cams, imgs, masks = bench_scene(8, 42.0, cfg.finest_size)
+    pairs = [PairInput(image0=imgs[a], image1=imgs[b], mask0=masks[a], mask1=masks[b],
+                       K0=np.asarray(cams[a].K), Rt0=np.asarray(cams[a].Rt),
+                       K1=np.asarray(cams[b].K), Rt1=np.asarray(cams[b].Rt))
+             for a, b in cfg.cam_pairs]
+    return int(len(reconstruct(cfg, pairs, device="cuda").vertices))
+
+
+def sweep_cell_parts() -> dict:
+    """Milliseconds a call of the bench's `ncc_sweep` cell's parts at its
+    inputs (`bench.chained_seconds`: CUDA events around 10 calls): both
+    images centered and their window moments (`sweep_moments`), and K1's
+    wrapper alone on them (the kernel and its flag's read-back)."""
+    import torch
+    from reconstruction_tpu_torch import bench
+    from reconstruction_tpu_torch.core.pyramid import quantize_u8
+    from reconstruction_tpu_torch.ops.ncc_sweep import ncc_sweep
+    from reconstruction_tpu_torch.stereo.matching import _centered, sweep_moments
+    H, W = 1920, 1280
+    imgL, imgR, mask = bench.synth_pair(H, W, np.random.default_rng(7))
+    Lq, Rq = (quantize_u8(torch.as_tensor(a, device="cuda")) for a in (imgL, imgR))
+    valid = torch.as_tensor(mask > 127, device="cuda")
+    lo, hi = bench.sweep_bounds(H, W, 64)
+
+    def moments(_):
+        L, R = _centered(Lq), _centered(Rq)
+        return L, R, sweep_moments(L, R, 2)
+
+    L, R, mom = moments(None)
+    return dict(
+        moments_ms=bench.chained_seconds(moments, None, 10, "cuda") * 1e3,
+        wrapper_ms=bench.chained_seconds(
+            lambda _: ncc_sweep(L, R, *mom, valid, valid, lo, hi, 2), None, 10, "cuda") * 1e3)
+
+
+def phase_bench(card: str, ref_verts=None) -> dict:
+    """The port's headline bench, `python -m reconstruction_tpu_torch.bench`,
+    at its defaults (kernel cells, stereo-only, a cold then two timed full
+    `reconstruct`s) in a fresh process, and `demo_video` at its defaults
+    (16 frames of 4 views at 320x240).  The bench's line must hold every
+    key, a value equal to its views per second (the full phase's 2 * 4
+    pairs / total_s, rounded as the line rounds) and above 0, every kernel
+    cell's flops_util and hbm_util <= 1, the mesh inside
+    `phase_reconstruct`'s gates with its vertex count (``ref_verts``, or
+    one `reconstruct` here); the video's line its keys and the JAX tool's
+    gates (the tool's exit code: finite vertices, median RMSE < 0.1)."""
+    line, wall = run_module("reconstruction_tpu_torch.bench", [], 600)
+    log(f"bench: python -m reconstruction_tpu_torch.bench in {wall:.1f} s ({card}): "
+        f"{json.dumps(line)}")
+    missing = BENCH_KEYS - set(line)
+    missing |= {f"mesh.{k}" for k in BENCH_MESH_KEYS - set(line.get("mesh", {}))}
+    missing |= {f"host.{k}" for k in BENCH_HOST_KEYS - set(line.get("host", {}))}
+    cells = line.get("kernels", {})
+    missing |= {f"kernels.{c}.{k}" for c in BENCH_CELLS
+                for k in BENCH_CELL_KEYS - set(cells.get(c, {}))}
+    if missing:
+        raise AssertionError(f"the bench's line lacks {sorted(missing)}")
+    vps = 2 * len(BENCH_PAIRS) / line["total_s"]
+    over = {c: (cells[c]["flops_util"], cells[c]["hbm_util"]) for c in BENCH_CELLS
+            if max(cells[c]["flops_util"], cells[c]["hbm_util"]) > 1.0}
+    if ref_verts is None:
+        ref_verts = bench_reference_verts()
+    mesh = line["mesh"]
+    ratio = mesh["verts"] / REF_MESH_VERTS
+    log(f"bench gates: value {line['value']} == views/s {vps:.4f} (from total_s "
+        f"{line['total_s']}) > 0; kernel cells with a utilization above 1: {over}; RMSE "
+        f"{mesh['surface_rmse']} <= {RMSE_LIMIT}; vertices {mesh['verts']} ({ratio:.3f}x of "
+        f"{REF_MESH_VERTS}, within 0.8-1.25) == phase_reconstruct's {ref_verts}")
+    if not (line["value"] > 0 and abs(line["value"] - vps) <= 1e-4 + 1e-3 * vps
+            and not over and mesh["surface_rmse"] <= RMSE_LIMIT
+            and 0.8 <= ratio <= 1.25 and mesh["verts"] == ref_verts):
+        raise AssertionError("the bench's line outside its gates")
+    parts = sweep_cell_parts()
+    log(f"bench ncc_sweep cell, ms a call ({card}): the cell "
+        f"{cells['ncc_sweep']['seconds'] * 1e3:.4f}; centering and both images' moments "
+        f"{parts['moments_ms']:.4f}, K1's wrapper {parts['wrapper_ms']:.4f}")
+
+    video, video_wall = run_module("reconstruction_tpu_torch.tools.demo_video",
+                                   ["--json", os.path.join(SCRATCH, "demo_video.json")],
+                                   600)
+    log(f"demo_video: 16 frames x 4 views at 320x240 in {video_wall:.1f} s ({card}): "
+        f"{json.dumps(video)}; pose error final {video['pose_err_deg_final']} and max "
+        f"{video['pose_err_deg_max']} degrees")
+    if VIDEO_KEYS - set(video) or not video["mesh_rmse_median"] < 0.1:
+        raise AssertionError(f"demo_video's line lacks {sorted(VIDEO_KEYS - set(video))} "
+                             f"or fails its RMSE gate")
+    return dict(line=line, wall_s=wall, ref_verts=ref_verts, sweep_cell_parts=parts,
+                video=video, video_wall_s=video_wall)
+
+
 def main() -> int:
     import torch
     # The package comes first: alone in a directory the script stops here.
@@ -2705,7 +2781,8 @@ def main() -> int:
             "reconstruct": lambda: phase_reconstruct(card), "cli": lambda: phase_cli(card),
             "video": lambda: phase_video(card),
             "satellites": lambda: phase_satellites(card),
-            "parallel": lambda: phase_parallel(card), "dome": lambda: phase_dome(card)}
+            "parallel": lambda: phase_parallel(card), "dome": lambda: phase_dome(card),
+            "bench": lambda: phase_bench(card)}
     if sys.argv[1:]:
         for name in sys.argv[1:]:
             only[name]()
@@ -2722,6 +2799,7 @@ def main() -> int:
     par = phase_parallel(card, seq=recon.pop("rec"), scene=recon.pop("scene"))
     vid = phase_video(card)
     sat = phase_satellites(card)
+    bench = phase_bench(card, ref_verts=recon["runs"][0]["verts"])
     dome = phase_dome(card)
 
     src = "reconstruction_tpu_torch/csrc/"
@@ -2767,7 +2845,7 @@ def main() -> int:
         json.dump(dict(card=card, kernels=rows, kernel_times=kern, slice=sl,
                        small=small, mxu_path=mxu, ba=ba, front_end=front,
                        reconstruct=recon, cli=cli, parallel=par, video=vid,
-                       satellites=sat, dome=dome,
+                       satellites=sat, bench=bench, dome=dome,
                        build_log=_build.build_log), f, indent=1, default=str)
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -8,12 +8,18 @@
     reports them, to write beside every number taken on it;
   * `trace(path)`: `torch.profiler` over a block, written as a Chrome
     trace;
-  * `KernelCost.utilization`: a measured time against those peaks.
+  * `KernelCost.utilization`: a measured time against those peaks;
+  * the cost models of the bench's cells (`ncc_sweep_cost`, `refine_cost`,
+    `poisson_cost`, `schur_cost`): the float32 operations and the
+    device-memory bytes of each cell's whole function, counted from its
+    shapes, whatever kernels or launches compute it.  A cell may span
+    several launches; `chip_smoke.py`'s bounds each bound one launch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import subprocess
 from dataclasses import dataclass
 from typing import Dict, Iterator, Tuple
@@ -84,3 +90,80 @@ class KernelCost:
             "bound": ("hbm" if self.hbm_bytes / peaks["hbm_gbps"]
                       > self.flops / peaks["flops_f32"] else "flops"),
         }
+
+
+def ncc_sweep_cost(H: int, W: int, C: int, radius: int,
+                   num_shifts: int) -> KernelCost:
+    """The zero-mean NCC shift sweep with a running argmax over
+    ``num_shifts`` shifts of an (H, W, C) pair (`stereo/matching.
+    ncc_sweep_match`), as the JAX package counts it.
+
+    Operations per pixel and shift: C multiplies and C - 1 adds of the
+    channel product, 4 * radius adds of the separable box sum, and ~10 for
+    the score and the compare-and-keep: (2C - 1) + 4r + 10.
+
+    Bytes per pixel, each read once and the state written once: the two
+    images (2 * 4C), four moment maps (16), validR as float32 (4), active
+    (1), the two bound maps (8) and the (score, best shift) state (8):
+    8C + 37."""
+    per_px = (2 * C - 1) + 4 * radius + 10
+    return KernelCost(flops=float(H * W * per_px * num_shifts),
+                      hbm_bytes=H * W * (8.0 * C + 37.0))
+
+
+def refine_cost(H: int, W: int, iterations: int, s_cap: int,
+                build_shifts: int) -> KernelCost:
+    """The subpixel refine (`stereo/refine.disparity_refine`): a 3x3 NCC
+    cost volume of ``s_cap`` float32 slots a pixel, ``build_shifts`` of
+    them filled, then ``iterations`` Jacobi sweeps.
+
+    The build: `ncc_sweep_cost` at C 3, radius 1 over ``build_shifts``
+    shifts for its inputs and operations, and the volume written once,
+    H * W * s_cap * 4 bytes.
+
+    A sweep, per pixel: its three parabola taps (12 bytes), its disparity
+    and its window's anchor (8) and the inner-box mask (1) read once, its
+    disparity written once (4): 25 bytes.  94 operations: the parabola over
+    the three taps, the two exps of the N/S/E/W weights and the blend (the
+    JAX package's ~230 less the 136 compares and selects with which the
+    TPU picks the three taps out of a 32-slot window; here they are three
+    loads)."""
+    build = ncc_sweep_cost(H, W, 3, 1, build_shifts)
+    px = float(H * W)
+    return KernelCost(
+        flops=build.flops + iterations * px * 94.0,
+        hbm_bytes=build.hbm_bytes + px * s_cap * 4.0 + iterations * px * 25.0)
+
+
+def poisson_cost(resolution: int) -> KernelCost:
+    """The spectral Poisson solve on an R^3 grid, as the JAX package counts
+    it: an rfftn and an irfftn (5 n log2 n operations each, twice for the
+    complex arithmetic) and ~10 operations of eigenvalue scaling a cell;
+    six 8-byte passes over the n = R^3 cells."""
+    n = resolution ** 3
+    fft_flops = 2 * 5.0 * n * math.log2(max(n, 2))
+    return KernelCost(flops=fft_flops + 10 * n, hbm_bytes=8.0 * n * 6)
+
+
+def schur_cost(num_points: int, obs_per_point: int, num_cameras: int) -> KernelCost:
+    """One BA Gauss-Newton step's assembly and Schur reduction
+    (`ba/bundle_adjust.ba_step`) over M points with O observations each
+    (n = M * O) and C cameras.
+
+    Operations: ~250 an observation for the analytic Jacobians and ~160
+    for its block products, and per point the coupling contractions
+    (C * 6 * 3 * 3) and its share of the Schur product (C^2 * 36 * 3).
+
+    Bytes, each stream read once: per observation the 20 component arrays
+    of the Jacobians and residual, written and read (40 floats), and the 54
+    rows of the block stacks (4 bytes each); the 18 coupling rows He once
+    (n * 18 * 4), reduced into W_t by each observation's camera index; the
+    three (6C, M) operand pairs of the Schur product (6 * 6C * M * 4)."""
+    m, o, c = num_points, obs_per_point, num_cameras
+    n = m * o
+    red = m * (c * 6 * 3 * 3 + c * c * 36 * 3)
+    bytes_obs = n * (40 + 54) * 4
+    bytes_w = n * 18 * 4
+    bytes_s = 6 * (c * 6) * m * 4
+    return KernelCost(flops=float(n * (250 + 160) + red),
+                      hbm_bytes=float(bytes_obs + bytes_w + bytes_s))

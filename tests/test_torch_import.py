@@ -67,8 +67,10 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.parallel.production\n"
         "import reconstruction_tpu_torch.parallel.dryrun\n"
         "import reconstruction_tpu_torch.tools.demo_dome\n"
+        "import reconstruction_tpu_torch.bench\n"
+        "import reconstruction_tpu_torch.tools.demo_video\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'reconstruction_tpu', 'yaml'))\n"
+        "             ('jax', 'jaxlib', 'reconstruction_tpu', 'yaml', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     assert proc.returncode == 0, proc.stderr
@@ -82,6 +84,7 @@ def test_no_source_file_imports_jax():
         for line in f.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")
+                        or s.startswith("import bench") or s.startswith("from bench ")
                         or "import reconstruction_tpu." in s
                         or "from reconstruction_tpu." in s
                         or "from reconstruction_tpu import" in s), (f, line)
@@ -140,6 +143,14 @@ NEW_ENTRY_POINTS = [
     ("reconstruction_tpu_torch.tools.demo_dome", "run_dome"),
     ("reconstruction_tpu_torch.tools.demo_dome", "dome_pairs"),
     ("reconstruction_tpu_torch.tools.demo_dome", "reconstruct_sharded"),
+    ("reconstruction_tpu_torch.bench", "main"),
+    ("reconstruction_tpu_torch.bench", "run_phase"),
+    ("reconstruction_tpu_torch.bench", "measure_kernels"),
+    ("reconstruction_tpu_torch.bench", "run_full"),
+    ("reconstruction_tpu_torch.bench", "run_stereo_only"),
+    ("reconstruction_tpu_torch.bench", "build_rig"),
+    ("reconstruction_tpu_torch.tools.demo_video", "main"),
+    ("reconstruction_tpu_torch.tools.demo_video", "run_video"),
 ]
 
 
