@@ -85,10 +85,20 @@ Phases (any failure raises; the exit code is then non-zero):
      utilizations <= 1 and mesh gates (the vertex count equal to phase 8's);
      then `python -m reconstruction_tpu_torch.tools.demo_video` (16 frames
      of 4 views at 320x240, the JAX tool's gates)
- 15. the kernels line, the card line, and last {"ok": true, "device": {...}}
+ 15. the scaling harness (phase_scaling, before the dome): `python -m
+     reconstruction_tpu_torch.tools.bench_scaling` in a fresh process at
+     1920x1280 (--base 240 160 --levels 4), counts 1, 2 and 4 on the pair
+     axis (gloo ranks sharing the card, K1/K3/K2 on every rank), 2 repeats:
+     every key in every line, launches per pair equal across counts, each
+     pair's digest equal at every count and to an in-process chain of
+     `match_one_level` on the same pairs, in which K1 (pair 0's calls) and
+     K3 and K2 (its finest level's first refine) are bit-equal to their
+     plain versions; dev_eff, the wall efficiencies and comm_bytes logged
+ 16. the kernels line, the card line, and last {"ok": true, "device": {...}}
 
 Named phases run alone (no kernels line, no result): kernels, slice, small,
-mxu, ba, front, reconstruct, cli, video, satellites, parallel, dome, bench.
+mxu, ba, front, reconstruct, cli, video, satellites, parallel, dome, bench,
+scaling.
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -266,16 +276,23 @@ def report(name: str, res: dict, card: str) -> None:
 
 def device_events(run, attempts: int = 3) -> list:
     """The device events of torch.profiler (CPU and CUDA activity) over
-    ``run``.  The profiler on the card's machine now and then records no
+    ``run``, as (name, start_us, us) records read raw
+    (`utils/profiling.cuda_activity`, held against `prof.events()` once a
+    process).  The profiler on the card's machine now and then records no
     device event in a session; such a session is run again."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from reconstruction_tpu_torch.utils.profiling import cuda_activity
+    event = collections.namedtuple("DeviceEvent", "name start_us us")
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [event(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+                  for e in cuda_activity(prof)]
         if events:
             return events
     raise AssertionError(f"the profiler recorded no device event in {attempts} sessions")
@@ -359,11 +376,11 @@ def kernel_ms(fn, name: str, reps: int, sessions: int = 4, per_call: int = 1) ->
     for _ in range(sessions):
         dev_events = device_events(run)
         hits = sorted((e for e in dev_events if name in e.name),
-                      key=lambda e: e.time_range.start)[-reps * per_call:]
+                      key=lambda e: e.start_us)[-reps * per_call:]
         calls = len(hits) // per_call
         if calls >= max(1, reps // 2):
             hits = hits[len(hits) - calls * per_call:]
-            return sum(e.time_range.elapsed_us() for e in hits) / 1e3 / calls
+            return sum(e.us for e in hits) / 1e3 / calls
         seen = sorted({e.name[:60] for e in dev_events})
         log(f"  the profiler saw {len(hits)} kernels named like {name} in "
             f"{2 * reps} calls (device events: {seen}); profiling again")
@@ -719,7 +736,7 @@ def profile_run(run, label: str, card: str, top: int = 12) -> dict:
     by_name = {}
     for e in events:
         ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        by_name[e.name] = (ms + e.us / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     port = {}
     for key, sub in PORT_KERNELS.items():
@@ -2750,6 +2767,88 @@ def phase_bench(card: str, ref_verts=None) -> dict:
                 video=video, video_wall_s=video_wall)
 
 
+# The scaling harness's keys: the JAX tool's (`tools/bench_scaling.py`) and the port's.
+SCALING_KEYS = {"axis", "devices", "pairs", "finest", "levels", "wall_s", "views_per_sec",
+                "cpu_s_per_pair", "wall_eff_vs_host_bound", "cpu_eff", "backend", "cards",
+                "card", "launches_per_pair", "launches_from", "kernel_ms_per_pair",
+                "dev_eff", "wall_eff_vs_card_bound", "comm_bytes", "digest"}
+SCALING_BASE, SCALING_LEVELS, SCALING_COUNTS = (240, 160), 4, (1, 2, 4)
+
+
+def phase_scaling(card: str) -> dict:
+    """The scaling harness, `python -m reconstruction_tpu_torch.tools.bench_scaling`,
+    in a fresh process at the `myself` finest size 1920x1280 (--base 240 160
+    --levels 4), counts 1, 2 and 4 on the pair axis (gloo ranks sharing the
+    card), 2 timed repeats.  Fails unless every line has every key, the
+    launches per pair are equal across counts (K1, K3 and K2 each launched),
+    each pair's digest is the same at every count and equal to a chain of
+    `match_one_level` calls on the same pairs in this process; in that
+    chain K1 on each of pair 0's calls, and K3 and K2 on its finest level's
+    first refine (what rank 0 runs), are bit-equal to their plain versions."""
+    import torch
+    from reconstruction_tpu_torch.ops import ncc_sweep as K13
+    from reconstruction_tpu_torch.stereo import matching
+    from reconstruction_tpu_torch.tools import bench_scaling as bs
+    os.makedirs(SCRATCH, exist_ok=True)
+    path = os.path.abspath(os.path.join(SCRATCH, "scaling.json"))
+    args = ["--base", *map(str, SCALING_BASE), "--levels", str(SCALING_LEVELS),
+            "--counts", *map(str, SCALING_COUNTS), "--repeats", "2", "--json", path]
+    _, wall = run_module("reconstruction_tpu_torch.tools.bench_scaling", args, 600)
+    with open(path) as f:
+        lines = json.load(f)
+    log(f"scaling: python -m reconstruction_tpu_torch.tools.bench_scaling "
+        f"{' '.join(args[:-2])} in {wall:.1f} s ({card})")
+    for r in lines:
+        log(f"  {json.dumps(r)}")
+        log(f"  count {r['devices']} ({r['backend']}, {r['cards']} card): wall "
+            f"{r['wall_s']:.4f} s, {r['cpu_s_per_pair']:.4f} CPU s a pair, kernels "
+            f"{r['kernel_ms_per_pair']} ms a pair; dev_eff {r['dev_eff']}, cpu_eff "
+            f"{r['cpu_eff']:.4f}, wall_eff_vs_card_bound {r['wall_eff_vs_card_bound']}, "
+            f"wall_eff_vs_host_bound {r['wall_eff_vs_host_bound']:.4f}, comm_bytes "
+            f"{r['comm_bytes']}")
+    missing = {r["devices"]: sorted(SCALING_KEYS - set(r)) for r in lines
+               if SCALING_KEYS - set(r)}
+    if missing or [r["devices"] for r in lines] != list(SCALING_COUNTS):
+        raise AssertionError(f"the harness's lines lack keys {missing} or counts "
+                             f"(got {[r['devices'] for r in lines]})")
+    launches = lines[0]["launches_per_pair"]
+    if (any(r["launches_per_pair"] != launches or r["launches_from"] != "kernels"
+            for r in lines) or min(launches.values()) <= 0):
+        raise AssertionError(f"launches per pair differ across counts or miss a kernel: "
+                             f"{[r['launches_per_pair'] for r in lines]}")
+
+    # The same pairs as a chain in this process; K1 held against its plain
+    # version on pair 0's calls, K3 and K2 on its finest level's first refine.
+    per_pair, sweeps = int(launches["ncc_sweep"]), []
+    real = matching.ncc_sweep
+
+    def checked(*a):
+        out = real(*a)
+        if len(sweeps) < per_pair:
+            plain = K13.ncc_sweep_plain(*a)
+            sweeps.append(0.0 if all(torch.equal(x, y) for x, y in zip(out, plain))
+                          else float((out[0] - plain[0]).abs().max()))
+        return out
+
+    W0, H0 = SCALING_BASE
+    finest = (H0 << (SCALING_LEVELS - 1), W0 << (SCALING_LEVELS - 1))
+    matching.ncc_sweep = checked
+    try:
+        ref, call = keep_refine_call(lambda: bs.reference_digests(
+            max(SCALING_COUNTS), SCALING_LEVELS, SCALING_BASE, "cuda"), finest)
+    finally:
+        matching.ncc_sweep = real
+    checks = refine_call_against_plain(call, "scaling pair 0, finest level")
+    log(f"scaling: K1 on pair 0's {len(sweeps)} calls bit-equal to its plain version: "
+        f"{sum(e == 0.0 for e in sweeps)} of {per_pair} (max_abs_err {max(sweeps)})")
+    prefix = {r["devices"]: r["digest"] == ref[:r["pairs"]] for r in lines}
+    log(f"scaling: each count's pair digests equal to the in-process chain's {ref}: {prefix}")
+    if len(sweeps) != per_pair or max(sweeps) != 0.0 or not all(prefix.values()):
+        raise AssertionError("the scaling path's digests or K1 differ")
+    return dict(lines=lines, wall_s=wall, chain_digest=ref, k1_max_abs_err=max(sweeps),
+                kernel_checks=checks)
+
+
 def main() -> int:
     import torch
     # The package comes first: alone in a directory the script stops here.
@@ -2765,6 +2864,9 @@ def main() -> int:
     log(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from reconstruction_tpu_torch.utils.profiling import check_event_reader
+    log(f"profiler: the raw event reader agrees with prof.events() on "
+        f"{check_event_reader()} device events (torch {torch.__version__})")
 
     t0 = time.perf_counter()
     _build.load()
@@ -2782,7 +2884,7 @@ def main() -> int:
             "video": lambda: phase_video(card),
             "satellites": lambda: phase_satellites(card),
             "parallel": lambda: phase_parallel(card), "dome": lambda: phase_dome(card),
-            "bench": lambda: phase_bench(card)}
+            "bench": lambda: phase_bench(card), "scaling": lambda: phase_scaling(card)}
     if sys.argv[1:]:
         for name in sys.argv[1:]:
             only[name]()
@@ -2800,6 +2902,7 @@ def main() -> int:
     vid = phase_video(card)
     sat = phase_satellites(card)
     bench = phase_bench(card, ref_verts=recon["runs"][0]["verts"])
+    scaling = phase_scaling(card)
     dome = phase_dome(card)
 
     src = "reconstruction_tpu_torch/csrc/"
@@ -2845,7 +2948,7 @@ def main() -> int:
         json.dump(dict(card=card, kernels=rows, kernel_times=kern, slice=sl,
                        small=small, mxu_path=mxu, ba=ba, front_end=front,
                        reconstruct=recon, cli=cli, parallel=par, video=vid,
-                       satellites=sat, bench=bench, dome=dome,
+                       satellites=sat, bench=bench, scaling=scaling, dome=dome,
                        build_log=_build.build_log), f, indent=1, default=str)
     log(json.dumps({"kernels": rows}))
     log(card)

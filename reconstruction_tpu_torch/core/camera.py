@@ -8,7 +8,7 @@ torch tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -34,9 +34,46 @@ class Camera:
         return self.Rt[..., :, 3]
 
 
+@dataclass(frozen=True)
+class CameraPair:
+    """A stereo pair with file pointers, mirroring
+    `CManageData::cam[pair][0..1]` (`CManageData.cpp:50-64`)."""
+
+    left: Camera
+    right: Camera
+    left_id: int
+    right_id: int
+    left_image: str = ""
+    right_image: str = ""
+    left_mask: str = ""
+    right_mask: str = ""
+
+
 def make_camera(K, Rt) -> Camera:
     """float32 storage, like the reference's `make_camera`."""
     return Camera(K=np.asarray(K, np.float32), Rt=np.asarray(Rt, np.float32))
+
+
+def calibration_matrices(calib: Dict[str, np.ndarray], cid: int) -> Tuple[np.ndarray, np.ndarray]:
+    """float64 K (3, 3) and Rt (3, 4) of camera ``cid`` from a parsed
+    calibration dict with keys ``intrinsic-<id>`` and ``extrinsic-<id>``
+    (`CManageData.cpp:59-60`)."""
+    return (np.asarray(calib[f"intrinsic-{cid}"], np.float64).reshape(3, 3),
+            np.asarray(calib[f"extrinsic-{cid}"], np.float64).reshape(3, 4))
+
+
+def load_calibration(calib: Dict[str, np.ndarray], cam_ids: Sequence[int]) -> Dict[int, Camera]:
+    """Cameras ``cam_ids`` of a parsed calibration dict, parsed as float64
+    (`calibration_matrices`), stored as float32."""
+    return {cid: make_camera(*calibration_matrices(calib, cid)) for cid in cam_ids}
+
+
+def relative_pose(cam0: Camera, cam1: Camera) -> Tuple[np.ndarray, np.ndarray]:
+    """Pose of cam1 relative to cam0: x1 = R x0 + T
+    (`CStereoMatching.cpp:125-126`), float32."""
+    R = cam1.R @ cam0.R.T
+    T = -R @ cam0.t + cam1.t
+    return R, T
 
 
 def synthetic_rig(

@@ -65,3 +65,10 @@ def valid_mask(mask: torch.Tensor, threshold: float = 254.5) -> torch.Tensor:
 def erode_binary_np(valid: np.ndarray, se: np.ndarray) -> np.ndarray:
     """Host twin of `_erode` on numpy booleans (the same integer count)."""
     return _erode(torch.from_numpy(np.asarray(valid, bool)), se).numpy()
+
+
+def erode_mask_np(mask: np.ndarray, se_size: int,
+                  threshold: float = 254.5) -> np.ndarray:
+    """Host twin of `erode_mask`: boolean validity out."""
+    return erode_binary_np(np.asarray(mask) >= threshold,
+                           ellipse_kernel(se_size, se_size))

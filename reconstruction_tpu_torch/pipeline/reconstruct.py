@@ -33,6 +33,7 @@ from reconstruction_tpu_torch.cloud.filters import (
 from reconstruction_tpu_torch.cloud.mls import mls_smooth
 from reconstruction_tpu_torch.cloud.normals import estimate_normals
 from reconstruction_tpu_torch.config import ReconstructionConfig, preset
+from reconstruction_tpu_torch.core.camera import calibration_matrices
 from reconstruction_tpu_torch.core.rectify import RectifyResult
 from reconstruction_tpu_torch.io.images import check_writable, imread, imwrite
 from reconstruction_tpu_torch.io.opencv_yaml import load_opencv_yaml
@@ -86,8 +87,7 @@ def load_pairs(cfg: ReconstructionConfig) -> List[PairInput]:
     calib = load_opencv_yaml(os.path.join(cfg.filepath, cfg.camera_calib_name))
 
     def load_cam(cid):
-        return (np.asarray(calib[f"intrinsic-{cid}"], np.float64),
-                np.asarray(calib[f"extrinsic-{cid}"], np.float64),
+        return (*calibration_matrices(calib, cid),
                 imread(os.path.join(cfg.filepath, cfg.imagelist[cid])),
                 imread(os.path.join(cfg.filepath, cfg.masklist[cid]), grayscale=True))
 

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from reconstruction_tpu_torch.config import NOMATCH
-from reconstruction_tpu_torch.core.morphology import erode_mask, valid_mask
+from reconstruction_tpu_torch.core.morphology import erode_mask, erode_mask_np, valid_mask
 from reconstruction_tpu_torch.stereo.margins import Margins, inner_box
 from reconstruction_tpu_torch.utils.fp import fma32
 
@@ -75,4 +75,49 @@ def disparity_to_cloud(
         + float(Tf[i]) for i in range(3)], dim=-1)
     colors = torch.clamp(image, 0, 255).to(torch.uint8)
     return PointCloud(xyz=world.reshape(-1, 3), colors=colors.reshape(-1, 3),
+                      valid=ok.reshape(-1))
+
+
+def disparity_to_cloud_np(
+    disp: np.ndarray,
+    mask_u8: np.ndarray,
+    image_u8: np.ndarray,
+    Q: np.ndarray,
+    R_final: np.ndarray,
+    T_final: np.ndarray,
+    margins: np.ndarray,
+    scale: float,
+    erode_frac: float = 0.02,
+) -> PointCloud:
+    """Host twin of `disparity_to_cloud` on numpy arrays, returning numpy
+    arrays: the same erosion (`erode_mask_np`) and the JAX package's host
+    float32 math (no fused multiply-adds, a matmul for the world
+    transform), so it is exact against that package's twin, not against
+    `disparity_to_cloud`.
+
+    margins: (4,) int array (YL, YR, XL, XR), the Margins in field order.
+    """
+    H, W = disp.shape
+    erode_size = int(np.ceil(erode_frac * H))
+    valid = (erode_mask_np(mask_u8, erode_size) if erode_size > 1
+             else np.asarray(mask_u8) >= 254.5)
+    YL, YR, XL, XR = (int(v) for v in margins)
+    y = np.arange(H, dtype=np.float32)[:, None]
+    x = np.arange(W, dtype=np.float32)[None, :]
+    inner = (y >= YL) & (y <= YR) & (x >= XL) & (x <= XR)
+    disp = np.asarray(disp, np.float32)
+    ok = valid & (disp != NOMATCH) & inner
+
+    Qs = np.asarray(Q, np.float32).copy()
+    Qs[:, 3] *= np.float32(scale)
+    q03, q13, q23 = Qs[0, 3], Qs[1, 3], Qs[2, 3]
+    q32, q33 = Qs[3, 2], Qs[3, 3]
+    iW = np.float32(1.0) / (q33 + q32 * disp)
+    X = (q03 + x) * iW
+    Y = (y + q13) * iW
+    Z = (q23 * iW) * np.ones_like(X)
+    F = np.stack([X, Y, Z], axis=-1).astype(np.float32)
+    world = F @ np.asarray(R_final, np.float32).T + np.asarray(T_final, np.float32)
+    return PointCloud(xyz=world.reshape(-1, 3),
+                      colors=np.ascontiguousarray(image_u8).reshape(-1, 3),
                       valid=ok.reshape(-1))

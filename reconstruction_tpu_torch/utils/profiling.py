@@ -8,6 +8,8 @@
     reports them, to write beside every number taken on it;
   * `trace(path)`: `torch.profiler` over a block, written as a Chrome
     trace;
+  * `cuda_activity(prof)`: a finished session's device events, read raw
+    (held once a process against `prof.events()`: `check_event_reader`);
   * `KernelCost.utilization`: a measured time against those peaks;
   * the cost models of the bench's cells (`ncc_sweep_cost`, `refine_cost`,
     `poisson_cost`, `schur_cost`): the float32 operations and the
@@ -72,6 +74,59 @@ def trace(path: str) -> Iterator[torch.profiler.profile]:
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(path)
+
+
+def _raw_cuda(prof) -> list:
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted((e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda), key=lambda e: e.start_ns())
+
+
+_READER_CHECKED = 0
+
+
+def check_event_reader(attempts: int = 3) -> int:
+    """Hold `cuda_activity`'s raw reader against `prof.events()` on a small
+    session of its own (32 elementwise kernels): the same device events,
+    names and durations (within 1 ns), or AssertionError.  Runs once a
+    process; returns the number of events compared."""
+    global _READER_CHECKED
+    if _READER_CHECKED:
+        return _READER_CHECKED
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1 << 20, device="cuda")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                x = x * 1.0001 + 1.0
+            torch.cuda.synchronize()
+        raw = _raw_cuda(prof)
+        if raw:
+            break
+    else:
+        raise AssertionError(f"the profiler recorded no device event in {attempts} sessions")
+    cuda = torch.autograd.DeviceType.CUDA
+    wrapped = sorted((e for e in prof.events() if e.device_type == cuda),
+                     key=lambda e: e.time_range.start)
+    got = [(e.name(), e.duration_ns() / 1e3) for e in raw]
+    want = [(e.name, e.time_range.elapsed_us()) for e in wrapped]
+    if len(got) != len(want) or any(a[0] != b[0] or abs(a[1] - b[1]) > 1e-3
+                                    for a, b in zip(got, want)):
+        raise AssertionError(f"the raw profiler events differ from prof.events() "
+                             f"(torch {torch.__version__}): {got[:4]} against {want[:4]}")
+    _READER_CHECKED = len(got)
+    return _READER_CHECKED
+
+
+def cuda_activity(prof) -> list:
+    """The device events of a finished torch.profiler session, sorted by
+    start, as the profiler's raw records (``name()``, ``start_ns()``,
+    ``duration_ns()``) from its private ``prof.profiler.kineto_results``
+    (torch 2.x): `prof.events()` takes 10-50 s to wrap the ~44,000-55,000
+    events of a 1920x1280 pair.  The first call in a process runs
+    `check_event_reader`."""
+    check_event_reader()
+    return _raw_cuda(prof)
 
 
 @dataclass

@@ -69,6 +69,7 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.tools.demo_dome\n"
         "import reconstruction_tpu_torch.bench\n"
         "import reconstruction_tpu_torch.tools.demo_video\n"
+        "import reconstruction_tpu_torch.tools.bench_scaling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'reconstruction_tpu', 'yaml', 'bench'))\n"
         "assert not bad, bad\n"
@@ -151,6 +152,9 @@ NEW_ENTRY_POINTS = [
     ("reconstruction_tpu_torch.bench", "build_rig"),
     ("reconstruction_tpu_torch.tools.demo_video", "main"),
     ("reconstruction_tpu_torch.tools.demo_video", "run_video"),
+    ("reconstruction_tpu_torch.tools.bench_scaling", "main"),
+    ("reconstruction_tpu_torch.tools.bench_scaling", "run_axis"),
+    ("reconstruction_tpu_torch.tools.bench_scaling", "reference_digests"),
 ]
 
 
