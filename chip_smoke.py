@@ -32,10 +32,19 @@ Phases (any failure raises; the exit code is then non-zero):
      it and a read-back yardstick); K1 also on the
      guided and rematch cases, and timed by CUDA events around its launch
      (the profiler's stand-in where a session records no kernel); K3 beside a plain fill of a volume of its
-     size; K4 beside scatter_add_ (the library yardstick)
+     size; K4 beside scatter_add_ (the library yardstick); K6 ordering and
+     K7 bound propagation on the inputs a `myself` pair gives them at its
+     finest level (1920x1280), both directions (`phase_constraints`): each
+     once under torch.cuda.set_sync_debug_mode("error"), K6 bit-equal to
+     its plain version everywhere, K7 at every mask-valid source pixel
+     (the entries elsewhere that differ counted), their dependency chains
+     (K6's greedy steps a row; 2H and 2W for K7), device time, whole call,
+     plain time and byte bound
   4. match_pair on a rendered 1280x1920 two-view scene, preset "myself",
      twice, with the kernels' launch counts, per-level times, cloud
-     metrics and determinism, then torch.profiler over a third, warm run
+     metrics and determinism, its seconds by stage (the card synchronized
+     around each; ordering and bound propagation summed over the levels),
+     then torch.profiler over a warm run
      (device time and launches by kernel), and K1's launches of a fourth,
      one line each (call, shape, useful and evaluated pairs, modes, time,
      bound); the same path on a small scene against the plain CPU path
@@ -76,7 +85,8 @@ Phases (any failure raises; the exit code is then non-zero):
      pair (0, 1) in float32 and with the bfloat16 cost window (the bf16
      kernels' launches in the kernels line, the disparity deviation), K3
      and K2 of each run bit-equal to their plain versions on its finest
-     level's inputs (the 2160x128x3840 volume, all 150 sweeps); the
+     level's inputs (the 2160x128x3840 volume, all 150 sweeps), K6 and K7
+     of the float32 run likewise (2160x3840, both directions, timed); the
      pair's seconds by stage and a profile of its finest level
  14. the port's headline bench (phase_bench, before the dome): `python -m
      reconstruction_tpu_torch.bench` in a fresh process at its defaults
@@ -112,6 +122,9 @@ import sys
 import time
 
 import numpy as np
+
+from reconstruction_tpu_torch.tools.pair_stages import (
+    device_events, digest, pair_digests, profile_pair, timed)
 
 
 def log(*a):
@@ -274,30 +287,6 @@ def report(name: str, res: dict, card: str) -> None:
         f"{'none' if lib is None else f'{lib:.4f} ms'} ({card})")
 
 
-def device_events(run, attempts: int = 3) -> list:
-    """The device events of torch.profiler (CPU and CUDA activity) over
-    ``run``, as (name, start_us, us) records read raw
-    (`utils/profiling.cuda_activity`, held against `prof.events()` once a
-    process).  The profiler on the card's machine now and then records no
-    device event in a session; such a session is run again."""
-    import collections
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from reconstruction_tpu_torch.utils.profiling import cuda_activity
-    event = collections.namedtuple("DeviceEvent", "name start_us us")
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        events = [event(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
-                  for e in cuda_activity(prof)]
-        if events:
-            return events
-    raise AssertionError(f"the profiler recorded no device event in {attempts} sessions")
-
-
 def launch_event_ms(fn, reps: int) -> float:
     """Milliseconds per kernel launch of ``fn`` (reps calls) from CUDA events
     recorded around each `_build.launch`.  A spin kernel holds the stream
@@ -307,7 +296,7 @@ def launch_event_ms(fn, reps: int) -> float:
     from reconstruction_tpu_torch.ops import _build
     real, pairs = _build.launch, []
 
-    def timed(entry, *args):
+    def marked(entry, *args):
         torch.cuda._sleep(1 << 18)     # ~0.15 ms of spinning at the card's clock
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -318,7 +307,7 @@ def launch_event_ms(fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    _build.launch = timed
+    _build.launch = marked
     try:
         for _ in range(reps):
             fn()
@@ -336,12 +325,12 @@ def launch_host_ms(fn, reps: int) -> float:
     from reconstruction_tpu_torch.ops import _build
     real, marks = _build.launch, []
 
-    def timed(entry, *args):
+    def marked(entry, *args):
         marks.append(time.perf_counter())
         real(entry, *args)
 
     fn()
-    _build.launch = timed
+    _build.launch = marked
     total = 0.0
     try:
         for _ in range(reps):
@@ -716,28 +705,25 @@ def phase_kernels(card: str) -> dict:
                                   **bound(nbytes, He.numel()))
     report(f"K4 ba_coupling E={E} O={O} M={M} C={C}", results["ba_coupling"],
            card)
+
+    # K6 and K7 on the inputs the myself pair gives them at its finest level.
+    results.update(phase_constraints(card))
     return results
 
 
 # Substrings of the port's kernel names, as the profiler reports them.
 PORT_KERNELS = {"ncc_sweep": "ncc_sweep_kernel", "cost_volume": "cost_volume_kernel",
                 "refine": "refine_sweep", "ba_coupling": "ba_coupling_kernel",
-                "ncc_sweep_mxu": "ncc_sweep_mxu"}
+                "ncc_sweep_mxu": "ncc_sweep_mxu", "ordering": "ordering_constraint_kernel",
+                "propagate_bounds": "propagate_bounds_"}
 
 
 def profile_run(run, label: str, card: str, top: int = 12) -> dict:
-    """torch.profiler (CPU and CUDA activity) over one warm ``run``: device
-    time and launches summed by kernel name, the port's kernels apart."""
-    import torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    events = device_events(run)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in events:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.us / 1e3, n + 1)
-    busy = sum(ms for ms, _ in by_name.values())
+    """torch.profiler (CPU and CUDA activity) over one warm ``run``
+    (`tools/pair_stages.profile_pair`): device time and launches summed by
+    kernel name, the port's kernels apart."""
+    prof = profile_pair(run)
+    by_name, wall_ms, busy = prof["by_name"], prof["wall_ms"], prof["busy_ms"]
     port = {}
     for key, sub in PORT_KERNELS.items():
         hits = [(ms, n) for name, (ms, n) in by_name.items() if sub in name]
@@ -747,12 +733,13 @@ def profile_run(run, label: str, card: str, top: int = 12) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:30]
     log(f"profile of {label} ({card}): wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
-        f"{sum(n for _, n in by_name.values())} device events")
+        f"{prof['events']} device events")
     for key, v in port.items():
         log(f"  port kernel {key}: {v['ms']:.3f} ms in {v['launches']} launches")
     for name, (ms, n) in ranked[:top]:
         log(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
-    return dict(wall_ms=wall_ms, device_busy_ms=busy, port_kernels=port,
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_events=prof["events"],
+                port_kernels=port,
                 top=[dict(name=k, ms=v[0], launches=v[1]) for k, v in ranked])
 
 
@@ -860,16 +847,11 @@ def phase_slice(card: str) -> dict:
     import torch
     from reconstruction_tpu_torch.config import NOMATCH, preset
     from reconstruction_tpu_torch.stereo.pipeline import match_pair
-    from reconstruction_tpu_torch.utils.synthetic import make_stereo_scene
+    from reconstruction_tpu_torch.tools.pair_stages import pair_stage_seconds, scene_args
 
-    cfg = preset("myself")
-    size = cfg.finest_size                         # (1280, 1920) W x H
-    t0 = time.perf_counter()
-    cams, imgs, masks = make_stereo_scene(image_size=size, span_deg=7.0,
-                                          device="cuda")
-    log(f"scene {size[0]}x{size[1]} rendered in {time.perf_counter() - t0:.2f} s")
-    args = (cfg, imgs[0], imgs[1], masks[0], masks[1], cams[0].K, cams[0].Rt,
-            cams[1].K, cams[1].Rt)
+    size = preset("myself").finest_size            # (1280, 1920) W x H
+    args, render_s = timed(lambda: scene_args("myself"))
+    log(f"scene {size[0]}x{size[1]} rendered in {render_s:.2f} s")
 
     res, wall, launches = counted(lambda: match_pair(*args, device="cuda"))
     log(f"match_pair (first run, build excluded): {wall:.3f} s wall ({card})")
@@ -889,7 +871,7 @@ def phase_slice(card: str) -> dict:
         f"{res.refine_drift.cpu().numpy().round(4).tolist()}")
     metrics = cloud_metrics(res.cloud)
     log(f"cloud: {metrics}")
-    digests = _pair_digests(res)
+    digests = pair_digests(res)
     log(f"digests (sha256 of dtype, shape and bytes): disparity {digests['disparity']}, xyz {digests['xyz']}, "
         f"colors {digests['colors']}, valid {digests['valid']}")
     if not (metrics["points"] > 5000 and metrics["outlier_frac"] < 0.02
@@ -906,13 +888,15 @@ def phase_slice(card: str) -> dict:
         f"{[round(v, 3) for v in res2.level_ms]}, deterministic={same} ({card})")
     if not same:
         raise AssertionError("two runs of match_pair on the card differ")
+    stages = pair_stage_seconds(lambda: match_pair(*args, device="cuda"))
+    log_stages("myself pair", stages, card)
     prof = profile_run(lambda: match_pair(*args, device="cuda"),
                        "one warm match_pair", card)
     k1 = k1_launch_table(lambda: match_pair(*args, device="cuda"), card)
     return dict(launches=launches, wall_s=[wall, wall2], digests=digests,
                 level_ms=[res.level_ms, res2.level_ms], matched_frac=frac,
                 cloud=metrics, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-                profile=prof, k1_launches=k1)
+                pair_stages=stages, profile=prof, k1_launches=k1)
 
 
 def phase_small_reference() -> dict:
@@ -1124,32 +1108,25 @@ def phase_front_end(card: str) -> dict:
                 small_cost_rel=rel)
 
 
-def _timed(fn):
-    """(result, seconds) of ``fn()``, the card synchronized at both ends."""
-    import torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
 def counted(fn, bf16: bool = False):
     """(result, seconds, launches by kernel) of ``fn()``: the pair path's
-    kernel counts (K1's, and K3's and K2's by C entry) set to 0 just before
-    it and read just after, for K3 and K2 in the volume type of the path
+    kernel counts (K1's, K3's and K2's by C entry, K6's and K7's) set to 0
+    just before it and read just after, for K3 and K2 in the volume type of the path
     (float32, or bfloat16 with ``bf16``, named with a "_bf16" suffix).
     Raises if ``fn`` launched K3 or K2 in the other type."""
     import torch
+    from reconstruction_tpu_torch.ops import constraints as K67
     from reconstruction_tpu_torch.ops import ncc_sweep as K13
     from reconstruction_tpu_torch.ops import refine as K2
     dt = torch.bfloat16 if bf16 else torch.float32
     keyed = {"cost_volume": (K13.cost_volume, K13.VOLUME_ENTRIES[dt]),
              "refine_sweeps_fused": (K2.refine_sweeps_fused, K2.SWEEP_ENTRIES[dt])}
     K13.ncc_sweep.launches = 0
+    K67.ordering.launches = 0
+    K67.propagate_bounds.launches = 0
     for w, _ in keyed.values():
         w.launches.clear()
-    out, seconds = _timed(fn)
+    out, seconds = timed(fn)
     other = {e: n for w, entry in keyed.values() for e, n in w.launches.items() if e != entry}
     if other:
         raise AssertionError(f"the {dt} path launched kernels of the other volume type: "
@@ -1157,7 +1134,9 @@ def counted(fn, bf16: bool = False):
     sfx = "_bf16" if bf16 else ""
     return out, seconds, dict(ncc_sweep=K13.ncc_sweep.launches,
                               **{name + sfx: w.launches[entry]
-                                 for name, (w, entry) in keyed.items()})
+                                 for name, (w, entry) in keyed.items()},
+                              ordering=K67.ordering.launches,
+                              propagate_bounds=K67.propagate_bounds.launches)
 
 
 # The JAX package's full bench on this configuration (BENCH_r05.json "mesh").
@@ -1201,7 +1180,7 @@ def first_calls() -> dict:
     from reconstruction_tpu_torch.surface.poisson import _splat3
 
     dev = torch.device("cuda")
-    _, context_s = _timed(lambda: torch.zeros(1, device=dev))
+    _, context_s = timed(lambda: torch.zeros(1, device=dev))
     g = torch.Generator(device="cpu").manual_seed(0)
     pts = (torch.rand((1 << 20, 3), generator=g) * 250.0).to(dev)
     vals = torch.rand((1 << 20, 4), generator=g).to(dev)
@@ -1214,7 +1193,7 @@ def first_calls() -> dict:
         "rfftn_256": lambda: torch.fft.irfftn(torch.fft.rfftn(f), s=f.shape),
     }
     return dict(context_s=context_s,
-                **{name: [_timed(op)[1], _timed(op)[1]] for name, op in ops.items()})
+                **{name: [timed(op)[1], timed(op)[1]] for name, op in ops.items()})
 
 
 def phase_reconstruct(card: str) -> dict:
@@ -1222,7 +1201,7 @@ def phase_reconstruct(card: str) -> dict:
     the myself preset at 1280x1920, 8 cameras on a 42-degree arc rendered
     on the card (quantized as the bench stores them), pairs (0,1), (2,3),
     (4,5), (7,6), mls_radius 0.02, a 256^3 Poisson grid, no dedup.  Two
-    runs: stage seconds, K1/K3/K2 launches, mesh against the scene's
+    runs: stage seconds, K1/K3/K2/K6/K7 launches, mesh against the scene's
     surface and against the reference's vertex count, runs identical.
     A third run with the bfloat16 cost window (refine_cv_dtype), held to
     the same gates.  Then SOR and normals on one pair's raw cloud and MLS
@@ -1238,12 +1217,12 @@ def phase_reconstruct(card: str) -> dict:
     from reconstruction_tpu_torch.utils.synthetic import point_to_surface_rmse
 
     cfg = bench_config()
-    (cams, imgs, masks), render_s = _timed(lambda: bench_scene(8, 42.0, cfg.finest_size))
+    (cams, imgs, masks), render_s = timed(lambda: bench_scene(8, 42.0, cfg.finest_size))
     pairs = [PairInput(image0=imgs[a], image1=imgs[b], mask0=masks[a], mask1=masks[b],
                        K0=np.asarray(cams[a].K), Rt0=np.asarray(cams[a].Rt),
                        K1=np.asarray(cams[b].K), Rt1=np.asarray(cams[b].Rt))
              for a, b in cfg.cam_pairs]
-    _, native_s = _timed(native.load)
+    _, native_s = timed(native.load)
     log(f"reconstruct scene: 8 views {cfg.finest_size[0]}x{cfg.finest_size[1]} rendered "
         f"in {render_s:.2f} s; native library ready in {native_s:.2f} s "
         f"(g++ {native.build_seconds if native.build_seconds is not None else 'cached'})")
@@ -1295,7 +1274,7 @@ def phase_reconstruct(card: str) -> dict:
     log(f"reconstruct bfloat16 cost window: {wall_b:.2f} s wall ({card}); fused cloud "
         f"{bf['cloud_points']} points, mesh {bf['verts']} vertices / {bf['faces']} faces "
         f"({bf['vert_ratio']:.3f}x of {REF_MESH_VERTS}), RMSE {bf['rmse']:.6f} (float32 "
-        f"{run['rmse']:.6f}), peak {bf['peak_mem_gb']:.2f} GiB, K1/K3/K2 launches "
+        f"{run['rmse']:.6f}), peak {bf['peak_mem_gb']:.2f} GiB, K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches_b)}; stage seconds {bf['spans']}")
     if not (bf["rmse"] <= RMSE_LIMIT and 0.8 <= bf["vert_ratio"] <= 1.25
             and np.isfinite(rec_b.vertices).all() and all(launches_b.values())):
@@ -1337,7 +1316,7 @@ def phase_reconstruct(card: str) -> dict:
         row = {}
         for b in ("torch", "native"):
             run_stage(b)
-            out, s = _timed(lambda: run_stage(b))
+            out, s = timed(lambda: run_stage(b))
             row[b] = s
             row[b + "_out"] = out
         t_out, n_out = row.pop("torch_out"), row.pop("native_out")
@@ -1377,7 +1356,7 @@ def write_calib(root: str, cams) -> None:
 
 
 def _launch_line(launches: dict) -> str:
-    """K1/K3/K2 launches of a `counted` run."""
+    """K1/K3/K2/K6/K7 launches of a `counted` run."""
     return "/".join(str(n) for n in launches.values())
 
 
@@ -1431,7 +1410,7 @@ def phase_cli(card: str) -> dict:
     root = os.path.abspath(os.path.join(SCRATCH, "cli"))
     os.makedirs(root, exist_ok=True)
     size = preset("myself").finest_size
-    (cams, imgs, masks), render_s = _timed(lambda: bench_scene(8, 42.0, size))
+    (cams, imgs, masks), render_s = timed(lambda: bench_scene(8, 42.0, size))
     t0 = time.perf_counter()
     for i in range(8):
         imwrite(os.path.join(root, f"view{i}.png"), imgs[i])
@@ -1494,7 +1473,7 @@ def phase_cli(card: str) -> dict:
     with open(own_ply, "rb") as f:
         own_bytes = f.read()
     same_bytes = cli_bytes == own_bytes
-    _, wall["write_ply_s"] = _timed(lambda: write_ply(
+    _, wall["write_ply_s"] = timed(lambda: write_ply(
         os.path.join(root, "again.ply"), rec.vertices, colors=rec.colors, faces=rec.faces,
         color_order="bgr"))
     wall["load_run_config_s"] = load_s
@@ -1513,7 +1492,7 @@ def phase_cli(card: str) -> dict:
         f"({len(cli_bytes)} and {len(own_bytes)} bytes); mesh {len(rec.vertices)} "
         f"vertices / {len(rec.faces)} faces, "
         f"interior RMSE {rmse:.6f} (recorded: the myself preset's mls_radius 2.5 is "
-        f"not the bench's), in-process {own_s:.2f} s wall, K1/K3/K2 launches "
+        f"not the bench's), in-process {own_s:.2f} s wall, K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches)} ({card}); stage seconds {spans}")
     for name, n in launches.items():
         if n <= 0:
@@ -1525,25 +1504,6 @@ def phase_cli(card: str) -> dict:
                 inprocess_s=own_s, same_bytes=same_bytes,
                 verts=int(len(rec.vertices)), faces=int(len(rec.faces)), rmse=rmse,
                 launches=launches, spans=spans, cli_stdout=proc.stdout)
-
-
-def _digest(a) -> str:
-    """sha256 of an array's dtype, shape and bytes (equal digests: equal
-    arrays, bit for bit)."""
-    import hashlib
-    a = a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
-    a = np.ascontiguousarray(a)
-    return hashlib.sha256(f"{a.dtype}{a.shape}".encode() + a.tobytes()).hexdigest()
-
-
-def _pair_digests(res) -> dict:
-    """Digests of what a PairResult carries downstream."""
-    return dict(disparity=_digest(res.disparity), xyz=_digest(res.cloud.xyz),
-                colors=_digest(res.cloud.colors), valid=_digest(res.cloud.valid),
-                rect0=_digest(res.rect_images[0]), rect1=_digest(res.rect_images[1]),
-                mask0=_digest(res.rect_masks[0]), mask1=_digest(res.rect_masks[1]),
-                em0=_digest(res.rect_masks_eroded[0]), drift=_digest(res.refine_drift),
-                margins0=[int(v) for v in res.margins0])
 
 
 def vcycle_inputs(R: int, dev):
@@ -1670,7 +1630,7 @@ class CommClock:
         import torch.distributed as dist
         self.saved = {n: getattr(dist, n) for n in self.NAMES}
 
-        def timed(fn):
+        def synced(fn):
             def call(*a, **kw):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1682,7 +1642,7 @@ class CommClock:
             return call
 
         for n, fn in self.saved.items():
-            setattr(dist, n, timed(fn))
+            setattr(dist, n, synced(fn))
         return self
 
     def __exit__(self, *exc):
@@ -1764,7 +1724,7 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
     t_all = time.perf_counter()
     split = Timer(dev)
     rs = step("match_pairs_sharded", lambda: match_pairs_sharded(cfg, pairs, pmesh, timer=split))
-    out["pairs"] = [_pair_digests(r) for r in rs]
+    out["pairs"] = [pair_digests(r) for r in rs]
     out["pairs_split_s"] = dict(split.spans)
 
     disp = torch.from_numpy(refine_in["disp"]).to(dev)
@@ -1774,14 +1734,14 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
     got = step("refine_tiled", lambda: refine_tiled(
         tmesh, disp, L, R, m, refine_in["iterations"], refine_in["ws"],
         s_cap=refine_in["s_cap"], band=refine_in["band"]))
-    out["refine"] = _digest(got)
+    out["refine"] = digest(got)
 
     prob, _, _ = ba_problem(device=dev)
     out["ba"] = {}
     for damping in BA_DAMPINGS:
         poses, points, cost = step(f"ba_step_sharded@{damping:g}", lambda: ba_step_sharded(
             pmesh, prob, torch.zeros((16, 6), device=dev), prob.points0, 16, damping=damping))
-        out["ba"][damping] = dict(digest=_digest(points), cost=float(cost))
+        out["ba"][damping] = dict(digest=digest(points), cost=float(cost))
         if rank == 0:
             out["ba"][damping].update(poses=poses.cpu().numpy(), points=points.cpu().numpy())
 
@@ -1794,7 +1754,7 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
     spacing = torch.as_tensor(splat_box["spacing"], device=dev)
     V, D = step("distributed_splat", lambda: distributed_splat(
         pmesh, xyz, nrm, mine.cloud.valid.to(dev), origin, spacing, splat_box["R"]))
-    out["splat"] = dict(digest=_digest(torch.cat([V, D[..., None]], -1)))
+    out["splat"] = dict(digest=digest(torch.cat([V, D[..., None]], -1)))
     if rank == 0:
         out["splat"].update(V=V.cpu().numpy(), D=D.cpu().numpy())
     # Uncounted: this rank's splat with its points of weight 0 left in
@@ -1819,7 +1779,7 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
     f, screen = vcycle_inputs(VCYCLE["R"], dev)
     chi = step("poisson_vcycle_sharded", lambda: poisson_vcycle_sharded(
         tmesh, f, screen, levels=VCYCLE["levels"], cycles=VCYCLE["cycles"]))
-    out["vcycle"] = dict(digest=_digest(chi))
+    out["vcycle"] = dict(digest=digest(chi))
     if rank == 0:
         out["vcycle"]["chi"] = chi.cpu().numpy()
     out["dryrun"] = step("dryrun", lambda: dryrun("cuda"))
@@ -1911,23 +1871,23 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
         prob, Rt_true, pts_true = ba_problem(device=dev)
         zeros = torch.zeros((16, 6), device=dev)
         p1, x1, c1 = tb.ba_step(prob, zeros, prob.points0, 16)
-        (p2, x2, c2), ba_s = _timed(lambda: ba_step_sharded(mesh, prob, zeros, prob.points0, 16))
+        (p2, x2, c2), ba_s = timed(lambda: ba_step_sharded(mesh, prob, zeros, prob.points0, 16))
         ba_eq = torch.equal(p1, p2) and torch.equal(x1, x2) and torch.equal(c1, c2)
 
         disp = torch.from_numpy(refine_in["disp"]).to(dev)
         L, R = (torch.from_numpy(refine_in[k].astype(np.float32)).to(dev) for k in ("L", "R"))
         m = res0.margins0
         it = refine_in["iterations"]
-        ref_refine, ref_s = _timed(lambda: disparity_refine(
+        ref_refine, ref_s = timed(lambda: disparity_refine(
             disp, L, R, m, it, refine_in["ws"], s_cap=128, band=64, recenter_every=0))
-        got, tiled_s = _timed(lambda: refine_tiled(mesh, disp, L, R, m, it, refine_in["ws"],
+        got, tiled_s = timed(lambda: refine_tiled(mesh, disp, L, R, m, it, refine_in["ws"],
                                                    s_cap=128, band=64))
         refine_eq = torch.equal(got, ref_refine)
 
         f, screen = vcycle_inputs(VCYCLE["R"], dev)
-        chi_ref, dense_s = _timed(lambda: dense_vcycle(f, screen, VCYCLE["levels"],
+        chi_ref, dense_s = timed(lambda: dense_vcycle(f, screen, VCYCLE["levels"],
                                                        VCYCLE["cycles"]))
-        chi, vc_s = _timed(lambda: poisson_vcycle_sharded(
+        chi, vc_s = timed(lambda: poisson_vcycle_sharded(
             mesh, f, screen, levels=VCYCLE["levels"], cycles=VCYCLE["cycles"]))
         vc_eq = torch.equal(chi, chi_ref)
         a.update(ba=dict(equal=ba_eq, cost=float(c1), sharded_s=ba_s),
@@ -1941,7 +1901,7 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
         if not (ba_eq and refine_eq and vc_eq):
             raise AssertionError("a sharded function on one rank differs from its "
                                  "single-device counterpart")
-        dry, dry_s = _timed(lambda: dryrun("cuda"))
+        dry, dry_s = timed(lambda: dryrun("cuda"))
         log(f"parallel (a) dryrun over one rank in {dry_s:.2f} s: {dry}")
         a["dryrun"] = dict(dry, seconds=dry_s)
         ba_single = {d: tuple(v.cpu().numpy() if torch.is_tensor(v) and v.dim() else float(v)
@@ -1976,7 +1936,7 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
     if not all(np.array_equal(u.astype(np.float32), v) for u, v in zip(views_u8 + masks_u8,
                                                                       imgs + masks)):
         raise AssertionError("the bench views do not round-trip through uint8")
-    (ranks, world_s) = _timed(lambda: run_local(
+    (ranks, world_s) = timed(lambda: run_local(
         chip_smoke.parallel_rank, PARALLEL_RANKS, "cuda", cfg, views_u8, masks_u8,
         [np.asarray(c.K) for c in cams], [np.asarray(c.Rt) for c in cams], refine_in, box,
         backend="gloo", timeout=900))
@@ -1985,9 +1945,9 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
             f"{r['probe']}")
     if any(v != "ok" for r in ranks for v in r["probe"].values()):
         raise AssertionError("a collective refused CUDA tensors on gloo")
-    want = [_pair_digests(r) for r in seq.pair_results]
+    want = [pair_digests(r) for r in seq.pair_results]
     pairs_eq = all(r["pairs"] == want for r in ranks)
-    refine_eq = all(r["refine"] == _digest(ref_refine) for r in ranks)
+    refine_eq = all(r["refine"] == digest(ref_refine) for r in ranks)
     same_ba = all(len({r["ba"][d]["digest"] for r in ranks}) == 1 for d in BA_DAMPINGS)
     same_splat = len({r["splat"]["digest"] for r in ranks}) == 1
     same_chi = len({r["vcycle"]["digest"] for r in ranks}) == 1
@@ -2006,7 +1966,7 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
     # float32 bound on two orders of the same sums.
     gp, w, vals = splat_terms([(r.cloud, r.rectification.T_final) for r in seq.pair_results],
                               box, dev)
-    grid, splat_s = _timed(lambda: _splat3(torch.zeros((SPLAT_R,) * 3 + (4,), device=dev),
+    grid, splat_s = timed(lambda: _splat3(torch.zeros((SPLAT_R,) * 3 + (4,), device=dev),
                                            gp, w, vals))
     bnd = splat_bound(gp, w, vals, SPLAT_R, PARALLEL_RANKS)
     got = torch.cat([torch.from_numpy(r0["splat"]["V"]), torch.from_numpy(r0["splat"]["D"])[..., None]],
@@ -2147,7 +2107,7 @@ def phase_video(card: str) -> dict:
     def loader(i):
         if i not in frames:
             cams = orbit_rig(i, size, 6, 30.0)
-            (views, s) = _timed(lambda: [render_view(c, size, device="cuda") for c in cams])
+            (views, s) = timed(lambda: [render_view(c, size, device="cuda") for c in cams])
             render_s.append(s)
             imgs, masks = quantized([v[0] for v in views], [v[1] for v in views])
             frames[i] = [PairInput(image0=imgs[a], image1=imgs[b], mask0=masks[a],
@@ -2160,7 +2120,7 @@ def phase_video(card: str) -> dict:
     real, frame_s = recon_mod.reconstruct, []
 
     def timed_reconstruct(*a, **kw):
-        out, s = _timed(lambda: real(*a, **kw))
+        out, s = timed(lambda: real(*a, **kw))
         frame_s.append(s)
         return out
 
@@ -2183,7 +2143,7 @@ def phase_video(card: str) -> dict:
     verts = [int(len(r.mesh_vertices)) for r in results]
     log(f"video: 4 frames x 6 views {size[0]}x{size[1]}, {wall:.2f} s wall (render "
         f"{sum(render_s):.2f} s of it), per-frame reconstruct seconds "
-        f"{[round(s, 3) for s in frame_s]} ({card}); K1/K3/K2 launches "
+        f"{[round(s, 3) for s in frame_s]} ({card}); K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches)}")
     log(f"video: mesh vertices {verts}, RMSE {[round(v, 6) for v in rmse]}; rig angle "
         f"error (degrees) with closures {[round(e, 4) for e in err]}, chain without "
@@ -2256,7 +2216,7 @@ def phase_satellites(card: str) -> dict:
     img, bg, inside, outside = frame(1920, 1280)
     seg.segment_frame(img[:64, :80], bg[:64, :80], device="cuda")   # first CUDA use
     seg.flood_fill.readbacks = 0
-    mask, s = _timed(lambda: seg.segment_frame(img, bg, device="cuda"))
+    mask, s = timed(lambda: seg.segment_frame(img, bg, device="cuda"))
     fg_in, fg_out = float((mask[inside] > 0).mean()), float((mask[outside] > 0).mean())
     out["segment_full"] = dict(seconds=s, readbacks=seg.flood_fill.readbacks,
                                inside=fg_in, outside=fg_out)
@@ -2302,7 +2262,7 @@ def phase_satellites(card: str) -> dict:
     take, outdir = os.path.join(root, "take"), os.path.join(root, "out")
     os.makedirs(os.path.join(take, "mask"), exist_ok=True)
     size = bench_config().finest_size
-    (cams, imgs, masks), render_s = _timed(lambda: bench_scene(10, 54.0, size))
+    (cams, imgs, masks), render_s = timed(lambda: bench_scene(10, 54.0, size))
     t0 = time.perf_counter()
     for e in range(batch.EXPRESSION_NUM):
         for j in range(batch.CAMERA_NUM):
@@ -2336,7 +2296,7 @@ def phase_satellites(card: str) -> dict:
                         launches=launches, verts=meshes, configs_equal=configs_equal)
     log(f"run_batch: 1 take x 2 expressions, 10 views {size[0]}x{size[1]} (JPEG, "
         f"written in {write_s:.2f} s): {batch_s:.2f} s wall ({card}), meshes {meshes} vertices, "
-        f"config_1/2.yml equal to generate_take_config={configs_equal}, K1/K3/K2 "
+        f"config_1/2.yml equal to generate_take_config={configs_equal}, K1/K3/K2/K6/K7 "
         f"launches {_launch_line(launches)}")
     if not (configs_equal and min(meshes) > 0 and min(launches.values()) > 0):
         raise AssertionError("run_batch outside its gates")
@@ -2349,7 +2309,7 @@ def phase_satellites(card: str) -> dict:
         for e in (1, 2):
             imwrite(os.path.join(cut, f"{e:04d}_Cam{j}.jpg"), imgs[j + 2 * (e - 1)])
     seg.flood_fill.readbacks = 0
-    _, cut_s = _timed(lambda: seg.cut_image_dir(cut, device="cuda"))
+    _, cut_s = timed(lambda: seg.cut_image_dir(cut, device="cuda"))
     n = len(os.listdir(os.path.join(cut, "mask")))
     out["cut_image_dir"] = dict(seconds=cut_s, masks=n, readbacks=seg.flood_fill.readbacks)
     log(f"cut_image_dir: 2 cameras x 2 frames {size[0]}x{size[1]}, {n} masks in "
@@ -2370,53 +2330,17 @@ def dome_preset_config():
     return base.replace(cloud=dataclasses.replace(base.cloud, mls_radius=0.02))
 
 
-# The functions `stereo.pipeline` calls by name, timed by `pair_stage_seconds`.
-PAIR_STAGES = ("rectify_pair", "rectify_map", "remap_bilinear", "erode_mask",
-               "build_pyramid", "valid_mask", "find_margin", "brute_force_match",
-               "guided_match", "smoothness_constraint", "ordering_constraint",
-               "uniqueness_constraint", "propagate_bounds", "rematch", "median_filter",
-               "disparity_refine", "_drift", "disparity_to_cloud")
-
-
-def pair_stage_seconds(run) -> dict:
-    """Seconds by stage of one match_pair ``run``, the card synchronized
-    around each call: the functions `stereo.pipeline` calls by name are
-    wrapped here (not in the package) for the run, keyed by pyramid level
-    inside `match_one_level` ("L4/ordering_constraint") and by name
-    outside it; "other" is the wall less their sum."""
-    import torch
-    from reconstruction_tpu_torch.stereo import pipeline as sp
-    real = {n: getattr(sp, n) for n in PAIR_STAGES + ("match_one_level",)}
-    secs, level = {}, [None]
-
-    def timed(name):
-        def call(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = real[name](*a, **kw)
-            torch.cuda.synchronize()
-            key = name if level[0] is None else f"L{level[0]}/{name}"
-            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
-            return out
-        return call
-
-    def one_level(*a, **kw):
-        level[0] = a[5]
-        try:
-            return real["match_one_level"](*a, **kw)
-        finally:
-            level[0] = None
-
-    for name in PAIR_STAGES:
-        setattr(sp, name, timed(name))
-    sp.match_one_level = one_level
-    try:
-        _, wall = _timed(run)
-    finally:
-        for name, fn in real.items():
-            setattr(sp, name, fn)
-    secs["other"] = wall - sum(secs.values())
-    return dict(wall_s=wall, seconds=dict(sorted(secs.items(), key=lambda kv: -kv[1])))
+def log_stages(label: str, stages: dict, card: str) -> None:
+    """The largest stages of `tools/pair_stages.pair_stage_seconds`, and the ordering and
+    bound-propagation seconds summed over the levels."""
+    from reconstruction_tpu_torch.tools.pair_stages import stage_totals
+    secs = stages["seconds"]
+    total = stages["totals"] = stage_totals(secs)
+    log(f"{label}, seconds by stage (the card synchronized around each; wall "
+        f"{stages['wall_s']:.3f} s, {card}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in list(secs.items())[:24]))
+    log(f"{label}: ordering_constraint {total['ordering_constraint']:.4f} s and "
+        f"propagate_bounds {total['propagate_bounds']:.4f} s over all levels ({card})")
 
 
 def profile_level(run, level: int, label: str, card: str) -> dict:
@@ -2505,7 +2429,7 @@ def refine_call_against_plain(call, label: str) -> dict:
     dt = volume_dtype(a["cv_dtype"])
     sfx = "_bf16" if dt == torch.bfloat16 else ""
     cv = K13.cost_volume(*cargs, dtype=dt)
-    cvp, plain_v = _timed(lambda: K13.cost_volume_plain(*cargs, dtype=dt))
+    cvp, plain_v = timed(lambda: K13.cost_volume_plain(*cargs, dtype=dt))
     equal_v = torch.equal(cv, cvp) and cv.dtype == dt
     err_v = 0.0 if equal_v else float((cv.float() - cvp.float()).abs().max())
     del cvp
@@ -2513,7 +2437,7 @@ def refine_call_against_plain(call, label: str) -> dict:
     inner = inner_box(a["m"], H, W, inset=1)
     every = resolve_recenter(a["iterations"], a["recenter_every"])
     dk = K2.refine_sweeps(disp, cv, base, inner, a["iterations"], a["ws"], every)
-    dp, plain_r = _timed(lambda: plain_refine_sweeps(disp.contiguous(), cv, base,
+    dp, plain_r = timed(lambda: plain_refine_sweeps(disp.contiguous(), cv, base,
                                                      inner.contiguous(), a["iterations"],
                                                      a["ws"], every))
     equal_r = torch.equal(dk, dp)
@@ -2532,12 +2456,170 @@ def refine_call_against_plain(call, label: str) -> dict:
                                               sweeps=a["iterations"])}
 
 
+def keep_constraint_calls(run, shape):
+    """``run()`` with the pair path's `ordering_constraint` and
+    `propagate_bounds` wrapped so that their calls on an (H, W) = ``shape``
+    disparity (the finest level, both directions) are kept, inputs and
+    output: returns (``run()``, {name: [(args, output), ...]})."""
+    from reconstruction_tpu_torch.stereo import pipeline
+    names = ("ordering_constraint", "propagate_bounds")
+    real = {n: getattr(pipeline, n) for n in names}
+    kept = {n: [] for n in names}
+
+    def keeping(name):
+        def call(*args):
+            out = real[name](*args)
+            if tuple(args[0].shape) == shape:
+                kept[name].append((args, out))
+            return out
+        return call
+
+    for n in names:
+        setattr(pipeline, n, keeping(n))
+    try:
+        res = run()
+    finally:
+        for n, fn in real.items():
+            setattr(pipeline, n, fn)
+    if not all(len(v) == 2 for v in kept.values()):
+        raise AssertionError(f"expected two calls of each pass on a {shape} disparity, "
+                             f"kept {[len(v) for v in kept.values()]}")
+    return res, kept
+
+
+def without_sync(fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"): raises if it
+    makes PyTorch synchronize the host with the card."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def constraint_checks(kept, label: str, card: str, reps: int) -> dict:
+    """K6 and K7 on the pass calls `keep_constraint_calls` kept, each
+    direction: each called once under `without_sync`, K6 bit-equal to
+    `ordering_plain` everywhere, K7 bit-equal to `propagate_bounds_plain`
+    at every mask-valid source pixel (its contract; the entries elsewhere
+    that differ are counted), both equal to what the path computed.  The
+    dependency chains: K6's greedy steps a row (the points it deletes),
+    K7's 2H steps down and up a column and 2W along a row.  With ``reps``,
+    each kernel's device time on direction 0 (torch.profiler; K7's two
+    launches summed, and each alone), its whole call (CUDA events), its
+    plain version's time and its byte bound (each input byte read once,
+    each output byte written once).  Returns {"ordering": ...,
+    "propagate_bounds": ...} with max_abs_err over both directions."""
+    import torch
+    from reconstruction_tpu_torch.config import NOMATCH
+    from reconstruction_tpu_torch.ops import constraints as K67
+    from reconstruction_tpu_torch.stereo.margins import inner_box
+    out = {"ordering": dict(max_abs_err=0.0, library_ms=None, calls=[]),
+           "propagate_bounds": dict(max_abs_err=0.0, library_ms=None, calls=[])}
+    for i, ((d, m), path) in enumerate(kept["ordering_constraint"]):
+        H, W = d.shape
+        k = without_sync(lambda: K67.ordering(d, m))
+        p, plain_s = timed(lambda: K67.ordering_plain(d, m))
+        equal, same_path = torch.equal(k, p), torch.equal(k, path)
+        err = float((k - p).abs().max())
+        steps = (k != d).sum(1)
+        row = dict(direction=i, H=H, W=W, equal=equal, same_path=same_path,
+                   max_abs_err=err, plain_s=plain_s,
+                   points=int(((d != NOMATCH) & inner_box(m, H, W)).sum()),
+                   steps_max=int(steps.max()), steps_mean=float(steps.float().mean()),
+                   steps_total=int(steps.sum()))
+        log(f"K6 ordering, {label}, direction {i} ({H}x{W}): bit-equal to ordering_plain="
+            f"{equal}, equal to the path's output={same_path}, no host sync; greedy steps "
+            f"a row max {row['steps_max']}, mean {row['steps_mean']:.2f}, total "
+            f"{row['steps_total']} of {row['points']} points (plain {plain_s:.3f} s)")
+        if not (equal and same_path):
+            raise AssertionError(f"K6 ({label}, direction {i}) differs from its plain version")
+        out["ordering"]["calls"].append(row)
+        out["ordering"]["max_abs_err"] = max(out["ordering"]["max_abs_err"], err)
+    for i, ((d, v, ms, mt, *rest), path) in enumerate(kept["propagate_bounds"]):
+        H, W = d.shape
+        BL, BR = without_sync(lambda: K67.propagate_bounds(d, v, ms, mt, *rest))
+        (BLp, BRp), plain_s = timed(lambda: K67.propagate_bounds_plain(d, v, ms, mt, *rest))
+        mask = v & inner_box(ms, H, W)
+        equal = torch.equal(BL[mask], BLp[mask]) and torch.equal(BR[mask], BRp[mask])
+        outside = int(((BL != BLp) | (BR != BRp))[~mask].sum())
+        same_path = torch.equal(BL, path[0]) and torch.equal(BR, path[1])
+        err = max(float((BL - BLp)[mask].abs().max()), float((BR - BRp)[mask].abs().max()))
+        row = dict(direction=i, H=H, W=W, equal_mask_valid=equal, mask_valid=int(mask.sum()),
+                   differ_outside=outside, same_path=same_path, max_abs_err=err,
+                   plain_s=plain_s, chain_column=2 * H, chain_row=2 * W)
+        log(f"K7 propagate_bounds, {label}, direction {i} ({H}x{W}): bit-equal to "
+            f"propagate_bounds_plain at the {row['mask_valid']} mask-valid source pixels="
+            f"{equal}, entries elsewhere that differ {outside}, equal to the path's output="
+            f"{same_path}, no host sync; chains {2 * H} steps a column, {2 * W} a row "
+            f"(plain {plain_s:.3f} s)")
+        if not (equal and same_path):
+            raise AssertionError(f"K7 ({label}, direction {i}) differs from its plain version")
+        out["propagate_bounds"]["calls"].append(row)
+        out["propagate_bounds"]["max_abs_err"] = max(out["propagate_bounds"]["max_abs_err"],
+                                                     err)
+    if not reps:
+        return out
+    for i, ((d, m), _) in enumerate(kept["ordering_constraint"]):
+        fn = lambda: K67.ordering(d, m)
+        row = out["ordering"]["calls"][i]
+        row.update(ms=kernel_ms(fn, "ordering_constraint_kernel", reps),
+                   call_ms=cuda_ms(fn, reps))
+        if i == 0:
+            H, W = d.shape
+            out["ordering"].update(
+                ms=row["ms"], call_ms=row["call_ms"],
+                plain_ms=cuda_ms(lambda: K67.ordering_plain(d, m), 1),
+                steps_max=row["steps_max"], **bound(H * W * 8 + 16, 0.0))
+    for i, ((d, v, ms, mt, *rest), _) in enumerate(kept["propagate_bounds"]):
+        fn = lambda: K67.propagate_bounds(d, v, ms, mt, *rest)
+        row = out["propagate_bounds"]["calls"][i]
+        row.update(ms=kernel_ms(fn, "propagate_bounds_", reps, per_call=2),
+                   columns_ms=kernel_ms(fn, "propagate_bounds_columns", reps),
+                   rows_ms=kernel_ms(fn, "propagate_bounds_rows", reps),
+                   call_ms=cuda_ms(fn, reps))
+        if i == 0:
+            H, W = d.shape
+            out["propagate_bounds"].update(
+                ms=row["ms"], call_ms=row["call_ms"],
+                plain_ms=cuda_ms(lambda: K67.propagate_bounds_plain(d, v, ms, mt, *rest), 2),
+                **bound(H * W * 13 + 24, 0.0))
+    for name in ("ordering", "propagate_bounds"):
+        calls = out[name]["calls"]
+        log(f"{name} {label}: kernel ms by direction "
+            f"{[round(c['ms'], 4) for c in calls]}, whole call "
+            f"{[round(c['call_ms'], 4) for c in calls]}"
+            + (f", column pass {[round(c['columns_ms'], 4) for c in calls]}, row pass "
+               f"{[round(c['rows_ms'], 4) for c in calls]}" if name == "propagate_bounds"
+               else "") + f" ({card})")
+        report(f"{'K6' if name == 'ordering' else 'K7'} {name} {label}, direction 0",
+               out[name], card)
+    return out
+
+
+def phase_constraints(card: str) -> dict:
+    """K6 and K7 at the slice's finest level: one `myself` match_pair
+    (1280x1920, the slice phase's scene), its finest level's ordering and
+    bound-propagation calls kept and held against the plain versions,
+    then timed (`constraint_checks`)."""
+    from reconstruction_tpu_torch.config import preset
+    from reconstruction_tpu_torch.stereo.pipeline import match_pair
+    from reconstruction_tpu_torch.tools.pair_stages import scene_args
+    size = preset("myself").finest_size
+    args = scene_args("myself")
+    _, kept = keep_constraint_calls(lambda: match_pair(*args, device="cuda"),
+                                    (size[1], size[0]))
+    return constraint_checks(kept, f"myself finest level {size[1]}x{size[0]}", card, reps=10)
+
+
 def phase_dome(card: str) -> dict:
     """The 32-camera dome at its own size (`preset("dome32")`: 16 pairs,
     3840x2160, 5 levels, refine 30 + 30*level; `dome_preset_config`)
     through the production entry `reconstruct(mesh=...)` on one NCCL rank,
     by the dome tool's functions (`reconstruction_tpu_torch/tools/
-    demo_dome.py`): wall by stage, K1/K3/K2 launches, peak device memory,
+    demo_dome.py`): wall by stage, K1/K3/K2/K6/K7 launches, peak device memory,
     cloud points, vertices and point-to-surface RMSE, held to the JAX
     tool's gates (finite vertices, more than 10,000, RMSE < 0.2).  Then
     pair (0, 1) through match_pair in float32 and with the bfloat16 cost
@@ -2555,10 +2637,11 @@ def phase_dome(card: str) -> dict:
     from reconstruction_tpu_torch.parallel.mesh import COMM
     from reconstruction_tpu_torch.stereo.pipeline import match_pair
     from reconstruction_tpu_torch.tools import demo_dome
+    from reconstruction_tpu_torch.tools.pair_stages import pair_stage_seconds
 
     cfg = dome_preset_config()
     torch.cuda.empty_cache()
-    (cams, pairs), render_s = _timed(lambda: demo_dome.dome_pairs(cfg, "cuda"))
+    (cams, pairs), render_s = timed(lambda: demo_dome.dome_pairs(cfg, "cuda"))
     log(f"dome: {2 * cfg.num_pairs} views {cfg.finest_size[0]}x{cfg.finest_size[1]} "
         f"rendered in {render_s:.2f} s; {cfg.num_pairs} pairs, {cfg.pyramid_levels} "
         f"levels, refine {[cfg.refine_iterations(v) for v in range(cfg.pyramid_levels)]}")
@@ -2572,7 +2655,7 @@ def phase_dome(card: str) -> dict:
                stats=rec.stats.records, comm=COMM.as_dict(),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     log(f"dome reconstruct(mesh=...), one NCCL rank: {wall:.2f} s wall ({card}); "
-        f"stage seconds {spans}; K1/K3/K2 launches {_launch_line(launches)}; collectives "
+        f"stage seconds {spans}; K1/K3/K2/K6/K7 launches {_launch_line(launches)}; collectives "
         f"{out['comm']}; peak device "
         f"memory {out['peak_mem_gb']:.2f} GiB; fused cloud {summ['cloud_points']} points, "
         f"mesh {summ['verts']} vertices / {summ['faces']} faces, RMSE "
@@ -2595,16 +2678,20 @@ def phase_dome(card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        (res, s, n), call = keep_refine_call(
+        run_pair = lambda: keep_refine_call(
             lambda: counted(lambda: match_pair(c, *args, device="cuda"),
                             bf16=dt == "bfloat16"), finest)
+        if dt == "float32":   # K6's and K7's finest-level calls kept too
+            ((res, s, n), call), kept = keep_constraint_calls(run_pair, finest)
+        else:
+            (res, s, n), call = run_pair()
         ab[dt] = dict(wall_s=s, launches=n, level_ms=res.level_ms,
                       peak_gb=(torch.cuda.max_memory_allocated() - held) / 2**30,
                       cloud=cloud_metrics(res.cloud), disparity=res.disparity,
                       drift=res.refine_drift.cpu().numpy().round(4).tolist())
         log(f"dome pair (0, 1) with a {dt} cost volume: {s:.2f} s wall, per-level ms "
             f"{[round(v, 1) for v in res.level_ms or ()]}, its own peak device memory "
-            f"{ab[dt]['peak_gb']:.3f} GiB, K1/K3/K2 launches {_launch_line(n)}, refine "
+            f"{ab[dt]['peak_gb']:.3f} GiB, K1/K3/K2/K6/K7 launches {_launch_line(n)}, refine "
             f"drift p99 {ab[dt]['drift']}, cloud {ab[dt]['cloud']} ({card})")
         if not all(n.values()):
             raise AssertionError(f"the dome pair ({dt}) did not launch every kernel")
@@ -2612,6 +2699,11 @@ def phase_dome(card: str) -> dict:
         checks.update(refine_call_against_plain(
             call, f"dome pair (0, 1) {dt}, finest level, first direction"))
         del call
+        if dt == "float32":
+            checks.update(constraint_checks(
+                kept, f"dome pair (0, 1) finest level {finest[0]}x{finest[1]}", card,
+                reps=5))
+            del kept
         gc.collect()
         torch.cuda.empty_cache()
     d32, d16 = ab["float32"].pop("disparity"), ab["bfloat16"].pop("disparity")
@@ -2631,9 +2723,7 @@ def phase_dome(card: str) -> dict:
 
     run = lambda: match_pair(cfg, *args, device="cuda")
     stages = pair_stage_seconds(run)
-    log(f"dome pair (0, 1) float32, seconds by stage (the card synchronized around "
-        f"each; wall {stages['wall_s']:.2f} s, {card}): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in list(stages["seconds"].items())[:24]))
+    log_stages("dome pair (0, 1) float32", stages, card)
     prof = profile_level(run, cfg.pyramid_levels - 1,
                          "the dome pair's finest level (3840x2160, float32)", card)
     return dict(out, pair_ab=ab, kernel_checks=checks, deviation=dev, pair_stages=stages,
@@ -2851,7 +2941,9 @@ def phase_scaling(card: str) -> dict:
 
 def main() -> int:
     import torch
-    # The package comes first: alone in a directory the script stops here.
+
+    # Alone in a directory the script has stopped already, at its import of
+    # the package.
     from reconstruction_tpu_torch.ops import _build
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -2921,8 +3013,12 @@ def main() -> int:
              replaces="reconstruction_tpu/ops/refine_pallas.py:225"),
         dict(name="refine_sweeps_fused_bf16", route="cuda", source=src + "refine.cu",
              replaces="reconstruction_tpu/ops/refine_pallas.py:225"),
+        dict(name="ordering", route="cuda", source=src + "constraints.cu",
+             replaces="reconstruction_tpu/stereo/constraints.py:78"),
+        dict(name="propagate_bounds", route="cuda", source=src + "constraints.cu",
+             replaces="reconstruction_tpu/stereo/constraints.py:334"),
     ]
-    # Launches on each kernel's main path: the myself pair (K1, K3, K2), BA
+    # Launches on each kernel's main path: the myself pair (K1, K3, K2, K6, K7), BA
     # (K4), the tensor-core sweep's entry point (K5), and the dome's pair
     # (0, 1) with the bfloat16 cost window (K3's and K2's bfloat16 instances).
     bf16_pair = dome["pair_ab"]["bfloat16"]["launches"]
@@ -2935,8 +3031,9 @@ def main() -> int:
         row.update({k: kern[row["name"]][k]
                     for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")})
-        # K3 and K2 were also held against their plain versions at the dome's
-        # finest level, on the pair whose bfloat16 launches the line reports.
+        # K3, K2, K6 and K7 were also held against their plain versions at the
+        # dome's finest level (K3 and K2 on the pair whose bfloat16 launches
+        # the line reports).
         if row["name"] in dome["kernel_checks"]:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      dome["kernel_checks"][row["name"]]["max_abs_err"])

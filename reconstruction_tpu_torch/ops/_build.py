@@ -52,6 +52,8 @@ _SIGNATURES = {
     "rtt_ba_coupling": [_P] * 3 + [_I] * 4 + [_P],
     "rtt_ncc_sweep_mxu": [_P] * 13 + [_I] * 8 + [_LL, _P],
     "rtt_ncc_sweep_mxu_layout": [_I, _I, _P],
+    "rtt_ordering": [_P] * 6 + [_I] * 2 + [_P],
+    "rtt_propagate_bounds": [_P] * 10 + [_F] + [_I] * 2 + [_P],
 }
 
 

@@ -29,6 +29,8 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.ops.refine\n"
         "import reconstruction_tpu_torch.ops.ba_coupling\n"
         "import reconstruction_tpu_torch.ops.ncc_sweep_mxu\n"
+        "import reconstruction_tpu_torch.ops.constraints\n"
+        "import reconstruction_tpu_torch.tools.pair_stages\n"
         "import reconstruction_tpu_torch.ba\n"
         "import reconstruction_tpu_torch.stereo.ncc\n"
         "import reconstruction_tpu_torch.ops._build\n"
