@@ -37,8 +37,9 @@ Phases (any failure raises; the exit code is then non-zero):
      finest level (1920x1280), both directions (`phase_constraints`): each
      once under torch.cuda.set_sync_debug_mode("error"), K6 bit-equal to
      its plain version everywhere, K7 at every mask-valid source pixel
-     (the entries elsewhere that differ counted), their dependency chains
-     (K6's greedy steps a row; 2H and 2W for K7), device time, whole call,
+     (the entries elsewhere that differ counted), the work that sets their
+     time (K6's greedy steps a row and the points that cross any; K7's
+     segments a column and runs a row), device time, whole call,
      plain time and byte bound
   4. match_pair on a rendered 1280x1920 two-view scene, preset "myself",
      twice, with the kernels' launch counts, per-level times, cloud
@@ -123,6 +124,7 @@ import time
 
 import numpy as np
 
+from reconstruction_tpu_torch.tools.k67_phase_clocks import keep_constraint_calls
 from reconstruction_tpu_torch.tools.pair_stages import (
     device_events, digest, pair_digests, profile_pair, timed)
 
@@ -352,7 +354,8 @@ def kernel_ms(fn, name: str, reps: int, sessions: int = 4, per_call: int = 1) ->
     runs 2 * reps calls and the last reps calls' launches it recorded are
     averaged.
     Now and then a session records none of the kernels (only the flag's
-    copies): it is run again, and after ``sessions`` such sessions the
+    copies), or `device_events` records no device event at all in its own
+    retries: it is run again, and after ``sessions`` such sessions the
     time comes from `launch_event_ms`, which the log says."""
     import torch
     fn()
@@ -363,7 +366,11 @@ def kernel_ms(fn, name: str, reps: int, sessions: int = 4, per_call: int = 1) ->
             fn()
 
     for _ in range(sessions):
-        dev_events = device_events(run)
+        try:
+            dev_events = device_events(run)
+        except AssertionError as e:     # no device event at all in its sessions
+            log(f"  {e} while timing {name}; profiling again")
+            continue
         hits = sorted((e for e in dev_events if name in e.name),
                       key=lambda e: e.start_us)[-reps * per_call:]
         calls = len(hits) // per_call
@@ -2456,37 +2463,6 @@ def refine_call_against_plain(call, label: str) -> dict:
                                               sweeps=a["iterations"])}
 
 
-def keep_constraint_calls(run, shape):
-    """``run()`` with the pair path's `ordering_constraint` and
-    `propagate_bounds` wrapped so that their calls on an (H, W) = ``shape``
-    disparity (the finest level, both directions) are kept, inputs and
-    output: returns (``run()``, {name: [(args, output), ...]})."""
-    from reconstruction_tpu_torch.stereo import pipeline
-    names = ("ordering_constraint", "propagate_bounds")
-    real = {n: getattr(pipeline, n) for n in names}
-    kept = {n: [] for n in names}
-
-    def keeping(name):
-        def call(*args):
-            out = real[name](*args)
-            if tuple(args[0].shape) == shape:
-                kept[name].append((args, out))
-            return out
-        return call
-
-    for n in names:
-        setattr(pipeline, n, keeping(n))
-    try:
-        res = run()
-    finally:
-        for n, fn in real.items():
-            setattr(pipeline, n, fn)
-    if not all(len(v) == 2 for v in kept.values()):
-        raise AssertionError(f"expected two calls of each pass on a {shape} disparity, "
-                             f"kept {[len(v) for v in kept.values()]}")
-    return res, kept
-
-
 def without_sync(fn):
     """``fn()`` under torch.cuda.set_sync_debug_mode("error"): raises if it
     makes PyTorch synchronize the host with the card."""
@@ -2505,12 +2481,14 @@ def constraint_checks(kept, label: str, card: str, reps: int) -> dict:
     `ordering_plain` everywhere, K7 bit-equal to `propagate_bounds_plain`
     at every mask-valid source pixel (its contract; the entries elsewhere
     that differ are counted), both equal to what the path computed.  The
-    dependency chains: K6's greedy steps a row (the points it deletes),
-    K7's 2H steps down and up a column and 2W along a row.  With ``reps``,
-    each kernel's device time on direction 0 (torch.profiler; K7's two
-    launches summed, and each alone), its whole call (CUDA events), its
-    plain version's time and its byte bound (each input byte read once,
-    each output byte written once).  Returns {"ordering": ...,
+    work that sets their time: K6's greedy steps a row (the points it
+    deletes) and the points that cross any (those the loop visits), K7's
+    layout (`ops/constraints.k7_layout`: the segments a column and rows a
+    segment, the columns of a lane's run of a row).  With ``reps``, each
+    kernel's device time by direction (torch.profiler; K7's two launches
+    summed, and each alone) beside its byte bound (each input byte read
+    once, each output byte written once), its whole call (CUDA events) and
+    its plain version's time.  Returns {"ordering": ...,
     "propagate_bounds": ...} with max_abs_err over both directions."""
     import torch
     from reconstruction_tpu_torch.config import NOMATCH
@@ -2525,15 +2503,19 @@ def constraint_checks(kept, label: str, card: str, reps: int) -> dict:
         equal, same_path = torch.equal(k, p), torch.equal(k, path)
         err = float((k - p).abs().max())
         steps = (k != d).sum(1)
+        valid = (d != NOMATCH) & inner_box(m, H, W)
+        crossing = int((K67._crossings(d + torch.arange(W, device=d.device), valid)
+                        > 0).sum())
         row = dict(direction=i, H=H, W=W, equal=equal, same_path=same_path,
-                   max_abs_err=err, plain_s=plain_s,
-                   points=int(((d != NOMATCH) & inner_box(m, H, W)).sum()),
+                   max_abs_err=err, plain_s=plain_s, points=int(valid.sum()),
+                   crossing_points=crossing,
                    steps_max=int(steps.max()), steps_mean=float(steps.float().mean()),
                    steps_total=int(steps.sum()))
         log(f"K6 ordering, {label}, direction {i} ({H}x{W}): bit-equal to ordering_plain="
             f"{equal}, equal to the path's output={same_path}, no host sync; greedy steps "
             f"a row max {row['steps_max']}, mean {row['steps_mean']:.2f}, total "
-            f"{row['steps_total']} of {row['points']} points (plain {plain_s:.3f} s)")
+            f"{row['steps_total']} of {row['points']} points, {crossing} of which cross "
+            f"any (plain {plain_s:.3f} s)")
         if not (equal and same_path):
             raise AssertionError(f"K6 ({label}, direction {i}) differs from its plain version")
         out["ordering"]["calls"].append(row)
@@ -2547,13 +2529,17 @@ def constraint_checks(kept, label: str, card: str, reps: int) -> dict:
         outside = int(((BL != BLp) | (BR != BRp))[~mask].sum())
         same_path = torch.equal(BL, path[0]) and torch.equal(BR, path[1])
         err = max(float((BL - BLp)[mask].abs().max()), float((BR - BRp)[mask].abs().max()))
+        lay = K67.k7_layout(H, W)
         row = dict(direction=i, H=H, W=W, equal_mask_valid=equal, mask_valid=int(mask.sum()),
                    differ_outside=outside, same_path=same_path, max_abs_err=err,
-                   plain_s=plain_s, chain_column=2 * H, chain_row=2 * W)
+                   plain_s=plain_s, layout=lay)
         log(f"K7 propagate_bounds, {label}, direction {i} ({H}x{W}): bit-equal to "
             f"propagate_bounds_plain at the {row['mask_valid']} mask-valid source pixels="
             f"{equal}, entries elsewhere that differ {outside}, equal to the path's output="
-            f"{same_path}, no host sync; chains {2 * H} steps a column, {2 * W} a row "
+            f"{same_path}, no host sync; {lay['segments']} segments a column of "
+            f"{lay['segment_rows']} rows ({lay['column_blocks']} blocks of "
+            f"{lay['columns_a_block']} columns), runs of {lay['run']} columns a lane "
+            f"({lay['row_blocks']} blocks of {lay['rows_a_block']} rows) "
             f"(plain {plain_s:.3f} s)")
         if not (equal and same_path):
             raise AssertionError(f"K7 ({label}, direction {i}) differs from its plain version")
@@ -2566,7 +2552,7 @@ def constraint_checks(kept, label: str, card: str, reps: int) -> dict:
         fn = lambda: K67.ordering(d, m)
         row = out["ordering"]["calls"][i]
         row.update(ms=kernel_ms(fn, "ordering_constraint_kernel", reps),
-                   call_ms=cuda_ms(fn, reps))
+                   call_ms=cuda_ms(fn, reps), **bound(d.numel() * 8 + 16, 0.0))
         if i == 0:
             H, W = d.shape
             out["ordering"].update(
@@ -2579,7 +2565,7 @@ def constraint_checks(kept, label: str, card: str, reps: int) -> dict:
         row.update(ms=kernel_ms(fn, "propagate_bounds_", reps, per_call=2),
                    columns_ms=kernel_ms(fn, "propagate_bounds_columns", reps),
                    rows_ms=kernel_ms(fn, "propagate_bounds_rows", reps),
-                   call_ms=cuda_ms(fn, reps))
+                   call_ms=cuda_ms(fn, reps), **bound(d.numel() * 13 + 24, 0.0))
         if i == 0:
             H, W = d.shape
             out["propagate_bounds"].update(
@@ -2589,7 +2575,8 @@ def constraint_checks(kept, label: str, card: str, reps: int) -> dict:
     for name in ("ordering", "propagate_bounds"):
         calls = out[name]["calls"]
         log(f"{name} {label}: kernel ms by direction "
-            f"{[round(c['ms'], 4) for c in calls]}, whole call "
+            f"{[round(c['ms'], 4) for c in calls]} beside the byte bound "
+            f"{[round(c['bound_ms'], 4) for c in calls]}, whole call "
             f"{[round(c['call_ms'], 4) for c in calls]}"
             + (f", column pass {[round(c['columns_ms'], 4) for c in calls]}, row pass "
                f"{[round(c['rows_ms'], 4) for c in calls]}" if name == "propagate_bounds"

@@ -22,47 +22,75 @@
 // What bounds them on this card.  Bytes are few: K6 reads d and writes it
 // (8 bytes a pixel, 20 MB at 1920x1280), K7 reads d and the mask and
 // writes two maps (13 bytes a pixel): a few microseconds at 3.35 TB/s.
-// What bounds them is the length of their dependency chains: K6's greedy
-// loop is one step per deleted point of a row, each a block-wide argmax;
-// K7 is H dependent steps down and up each column and W forward and
-// backward along each row.
+// Work is small too, once no thread walks a whole row or column and no
+// row compares all its points pairwise; what is left is latency: the
+// dependency chains and the barriers between phases.
 //
 // What the design does about it.  K6 gives a row to a thread block: the
 // row's valid points, compacted in column order, sit in shared memory as
-// t (float), the crossing count (int, -1 once deleted) and the column
-// (16 bits), 10 bytes a column.  The initial counts are O(V^2) over the V
-// valid points, each thread counting for its own points.  A greedy step is
-// one pass of each thread over its own points, which decrements the counts
-// that cross the deleted point and keeps the thread's best (count, column)
-// key for the next step; a warp reduction, one barrier and a read of the
-// eight warps' keys find the next point.  The loop ends on the card when
-// the largest count is 0: nothing is read back.
-// K7 is two launches.  The column pass gives a column to a thread
-// (neighbouring threads on neighbouring addresses) and loads eight rows
-// ahead of its chain; it writes the vertical bounds into the outputs.  The
-// row pass gives a row to a thread block, which stages the row's two maps
-// and mask in shared memory with all its threads; thread 0 runs the lower
-// bound's chains and thread 32 (another warp) the upper bound's, side by
-// side, and the block writes the row back.
+// t (float), the crossing count (int) and the column (16 bits), with two
+// buffers of 16-bit indices for a merge sort, 14 bytes a column.  The
+// initial counts are a merge sort of (t, index): a warp counts and ranks
+// each chunk of 32 points by shuffles, then each bottom-up merge gives a
+// point of the left run the right run's points below its t (a binary
+// search, which also places it) and a point of the right run the left
+// run's points above it: O(V log^2 V) over the V points in place of
+// O(V^2).  Only points that cross something (count > 0) can be deleted or
+// lose a crossing, so they are compacted, in order, and the greedy loop
+// runs over them alone: a step is one pass of each thread over its own
+// points, which decrements those that cross the deleted one and keeps the
+// thread's best (count, index) key, then a warp reduction, one barrier and
+// a read of the eight warps' keys (on one warp, whose lanes walk shared
+// memory serially, a row of 141 steps took 2.4 times as long).  The loop
+// ends on the card when the largest count is 0.
+// K7 composes its step functions.  Two steps c -> op(c + s1, m1), then
+// c -> op(c + s2, m2), are one: (s1 + s2, op(m1 + s2, m2)), the JAX
+// package's `combine`.  The column pass gives a block 8 columns (W / 8
+// blocks: 160 at the `myself` finest level, 480 at the dome's) and cuts
+// each column into 128 segments of ceil(H / 128) rows, a thread a segment
+// (a warp reads 4 segments' 8 neighbouring columns, 32-byte sectors): each
+// thread folds its segment's down function (appending rows) and up
+// function (prepending them) in one walk, and keeps the down fold at the
+// start of each batch of 4 rows; a warp per column and chain scans the
+// 128 segments' functions (each lane folds 4, then a Kogge-Stone scan over
+// the lanes' shuffles); each thread replays its segment a batch at a time
+// from the bottom: the batch's down carry from its kept fold, its rows
+// down in registers, then up, and each output written once.
+// The row pass gives a row to a warp, staged in shared memory; each lane
+// owns a run of ceil(W / 32) columns (made odd: no bank conflicts), folds
+// the run's forward function, the lanes scan by shuffles, and the replay
+// writes the forward bounds while it folds the backward functions (their
+// m needs the forward bound), which are scanned from the last lane and
+// replayed.  The lower and upper bounds run side by side in each thread.
 // The margins are read from device memory (0-d int32 tensors): the
 // wrappers never read them back.
 //
 // Exactness.  K6 is comparisons and integer counts: bit-equal to its plain
-// version.  K7's chains sum in another order than the scan tree; the sums
-// that can win a max or a min at an output are sums of small integers,
-// exact in any order, so the outputs equal the plain version's at every
-// mask-valid source pixel (tests/test_torch_constraint_kernels.py).
+// version.  K7 groups the same associative operator in another way than
+// the scan tree; the sums that can win a max or a min at an output are
+// sums of small integers, exact in any order (only terms carrying the
+// +-1e9 reset sentinels round, and those never win), so the outputs equal
+// the plain version's at every mask-valid source pixel
+// (tests/test_torch_constraint_kernels.py models the kernels' bracketing).
 #include "common.cuh"
 
 #define RTT_CONSTRAINTS_MAX_W 16384   // ops/constraints.py MAX_WIDTH
 
 namespace {
 
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int K6_THREADS = 256;
 constexpr int K6_WARPS = K6_THREADS / 32;
-constexpr int K7_COL_THREADS = 32;
-constexpr int K7_COL_BATCH = 8;    // rows a column thread loads ahead
-constexpr int K7_ROW_THREADS = 128;
+constexpr int K6_CHUNK = 32;        // points a warp counts and ranks by shuffles
+// t, count, column, two sort buffers
+constexpr int K6_BYTES_PER_COLUMN = 4 + 4 + 2 + 2 * 2;
+constexpr int K7C_COLS = 8;         // columns a column-pass block
+constexpr int K7C_SEGS = 128;       // segments a column (tests: K7_SEGMENTS)
+constexpr int K7C_THREADS = K7C_COLS * K7C_SEGS;
+constexpr int K7C_PER_LANE = K7C_SEGS / 32;   // segments a lane of the scan folds
+constexpr int K7C_BATCH = 4;        // rows a thread holds at once (at least 2)
+constexpr int K7R_ROWS = 8;         // rows (warps) a row-pass block, at most
+constexpr int K7R_SMEM = 96 * 1024; // a row-pass block's staging, unless one row needs more
 constexpr int SMEM_DEFAULT = 48 * 1024;
 
 constexpr float K7_BIG = 1e9f;     // the reset sentinel (exact in float32)
@@ -84,10 +112,38 @@ __device__ __forceinline__ Box load_box(const int* YL, const int* YR, const int*
 // K6
 // ---------------------------------------------------------------------------
 
-// A point's argmax key: larger count first, then smaller compacted index
-// (the first maximum, as argmax takes it); -1 once deleted.
+// A point's argmax key: larger count first, then smaller index (the first
+// maximum, as argmax takes it); -1 once deleted.
 __device__ __forceinline__ int k6_key(int count, int i) {
   return count >= 0 ? (count << 16) | (0xFFFF - i) : -1;
+}
+
+// Compacts the entries [0, n) for which keep(i) holds to the front, in
+// order, K6_THREADS at a time: every thread of the block calls it, and
+// calls move(i, p) for each of its entries i (p <= i its new position, -1
+// where it is not kept or i >= n), after a barrier.  Returns the number
+// kept.
+template <typename Keep, typename Move>
+__device__ __forceinline__ int k6_compact(int n, int* wsum, Keep keep, Move move) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int kept = 0;
+  for (int i0 = 0; i0 < n; i0 += K6_THREADS) {
+    const int i = i0 + tid;
+    const bool k = i < n && keep(i);
+    const unsigned ballot = __ballot_sync(FULL, k);
+    if (lane == 0) wsum[warp] = __popc(ballot);
+    __syncthreads();
+    int off = kept, total = 0;
+#pragma unroll
+    for (int w = 0; w < K6_WARPS; ++w) {
+      off += w < warp ? wsum[w] : 0;
+      total += wsum[w];
+    }
+    move(i, k ? off + __popc(ballot & ((1u << lane) - 1u)) : -1);
+    kept += total;
+    __syncthreads();
+  }
+  return kept;
 }
 
 __global__ void __launch_bounds__(K6_THREADS)
@@ -99,6 +155,7 @@ ordering_constraint_kernel(const float* __restrict__ disp, float* __restrict__ o
   float* t = reinterpret_cast<float*>(k6_smem);
   int* cnt = reinterpret_cast<int*>(t + W);
   unsigned short* col = reinterpret_cast<unsigned short*>(cnt + W);
+  unsigned short* perm = col + W;               // two buffers of W indices
   __shared__ int wsum[K6_WARPS];
   __shared__ int wkey[2][K6_WARPS];
 
@@ -108,51 +165,95 @@ ordering_constraint_kernel(const float* __restrict__ disp, float* __restrict__ o
   float* orow = out + (size_t)y * W;
 
   // The row is copied; its valid points (inside the box, not NOMATCH) are
-  // compacted in column order, a tile of K6_THREADS columns at a time.
-  int V = 0;
-  for (int x0 = 0; x0 < W; x0 += K6_THREADS) {
-    const int x = x0 + tid;
-    const float d = x < W ? drow[x] : RTT_NOMATCH;
-    if (x < W) orow[x] = d;
-    const bool valid = x < W && box.row(y) && box.col(x) && d != RTT_NOMATCH;
-    const unsigned ballot = __ballot_sync(0xffffffffu, valid);
-    if (lane == 0) wsum[warp] = __popc(ballot);
-    __syncthreads();
-    int off = V, total = 0;
-#pragma unroll
-    for (int w = 0; w < K6_WARPS; ++w) {
-      off += w < warp ? wsum[w] : 0;
-      total += wsum[w];
-    }
-    if (valid) {
-      const int p = off + __popc(ballot & ((1u << lane) - 1u));
-      t[p] = __fadd_rn(d, (float)x);
-      col[p] = (unsigned short)x;
-    }
-    V += total;
-    __syncthreads();
-  }
+  // compacted in column order.
+  const int V = k6_compact(
+      W, wsum,
+      [&](int x) {
+        const float d = drow[x];
+        orow[x] = d;
+        return box.row(y) && box.col(x) && d != RTT_NOMATCH;
+      },
+      [&](int x, int p) {
+        if (p < 0) return;
+        t[p] = __fadd_rn(drow[x], (float)x);
+        col[p] = (unsigned short)x;
+      });
   if (V == 0) return;
 
-  // Initial crossing counts, each thread for its own points.
-  int best = -1;
-  for (int i = tid; i < V; i += K6_THREADS) {
-    const float ti = t[i];
-    int c = 0;
-#pragma unroll 8
-    for (int j = 0; j < V; ++j) {
-      const float tj = t[j];
-      c += j < i ? (tj > ti) : (tj < ti);
+  // Crossings inside each chunk of K6_CHUNK points, and the chunk sorted by
+  // (t, index): a warp a chunk, each lane a point, the chunk's t by shuffles.
+  for (int c0 = warp * K6_CHUNK; c0 < V; c0 += K6_THREADS) {
+    const int i = c0 + lane, n = min(K6_CHUNK, V - c0);
+    const float ti = i < V ? t[i] : 0.0f;
+    int c = 0, rank = 0;
+    for (int j = 0; j < n; ++j) {
+      const float tj = __shfl_sync(FULL, ti, j);
+      c += j < lane ? (tj > ti) : (tj < ti);
+      rank += tj < ti || (tj == ti && j < lane);
     }
-    cnt[i] = c;
-    best = max(best, k6_key(c, i));
+    if (i < V) {
+      cnt[i] = c;
+      perm[c0 + rank] = (unsigned short)i;
+    }
+  }
+  __syncthreads();
+
+  // Bottom-up merges of sorted runs of w points: a point of the left run
+  // gains the right run's points with t below its own, one of the right
+  // run the left run's points with t above its own; the same binary
+  // searches place each point in the merged run (left first on ties).
+  unsigned short* src = perm;
+  unsigned short* dst = perm + W;
+  for (int w = K6_CHUNK; w < V; w <<= 1) {
+    for (int e = tid; e < V; e += K6_THREADS) {
+      const int base = e & ~(2 * w - 1), mid = base + w;
+      const int p = src[e];
+      if (mid >= V) {
+        dst[e] = (unsigned short)p;
+        continue;
+      }
+      const float tp = t[p];
+      const bool left = e < mid;
+      int lo = left ? mid : base, hi = left ? min(base + 2 * w, V) : mid;
+      while (lo < hi) {
+        const int m = (lo + hi) >> 1;
+        const float tm = t[src[m]];
+        if (left ? tm < tp : tm <= tp) lo = m + 1; else hi = m;
+      }
+      const int r = lo - (left ? mid : base);
+      dst[left ? e + r : base + (e - mid) + r] = (unsigned short)p;
+      cnt[p] += left ? r : w - r;
+    }
+    __syncthreads();
+    unsigned short* tmp = src;
+    src = dst;
+    dst = tmp;
   }
 
-  // The greedy loop: each thread updates only its own points, so the one
-  // barrier a step is the one that publishes the warps' best keys (two
-  // buffers, by the step's parity).
+  // The greedy loop: only points that cross something can be deleted or
+  // lose a crossing, so they are compacted in order and the loop runs
+  // over them alone.  Each thread updates only its own points and folds
+  // the next step's (count, index) key as it goes, so the one barrier a
+  // step is the one that publishes the warps' best keys (two buffers, by
+  // the step's parity).
+  const int NA = k6_compact(
+      V, wsum, [&](int i) { return cnt[i] > 0; },
+      [&](int i, int p) {
+        const float ti = i < V ? t[i] : 0.0f;
+        const int ci = i < V ? cnt[i] : 0;
+        const unsigned short xi = i < V ? col[i] : 0;
+        __syncthreads();                       // every read before any write
+        if (p >= 0) {
+          t[p] = ti;
+          cnt[p] = ci;
+          col[p] = xi;
+        }
+      });
+  if (NA == 0) return;
+  int best = -1;
+  for (int j = tid; j < NA; j += K6_THREADS) best = max(best, k6_key(cnt[j], j));
   for (int step = 0;; ++step) {
-    const int wbest = __reduce_max_sync(0xffffffffu, best);
+    const int wbest = __reduce_max_sync(FULL, best);
     if (lane == 0) wkey[step & 1][warp] = wbest;
     __syncthreads();
     int key = wkey[step & 1][0];
@@ -162,16 +263,16 @@ ordering_constraint_kernel(const float* __restrict__ disp, float* __restrict__ o
     const int k = 0xFFFF - (key & 0xFFFF);
     const float tk = t[k];
     best = -1;
-    for (int i = tid; i < V; i += K6_THREADS) {
-      int c = cnt[i];
-      if (i == k) {
+    for (int j = tid; j < NA; j += K6_THREADS) {
+      int c = cnt[j];
+      if (j == k) {
         c = -1;
         orow[col[k]] = RTT_NOMATCH;
-      } else if (c >= 0 && (i < k ? t[i] > tk : t[i] < tk)) {
+      } else if (c >= 0 && (j < k ? t[j] > tk : t[j] < tk)) {
         --c;
       }
-      cnt[i] = c;
-      best = max(best, k6_key(c, i));
+      cnt[j] = c;
+      best = max(best, k6_key(c, j));
     }
   }
 }
@@ -185,157 +286,307 @@ __device__ __forceinline__ float k7_op(float a, float b) {
   return IS_MAX ? fmaxf(a, b) : fminf(a, b);
 }
 
+// A step function c -> op(c + s, m).
+struct Fn {
+  float s, m;
+};
+
+template <bool IS_MAX>
+__device__ __forceinline__ Fn k7_ident() {
+  return Fn{0.0f, IS_MAX ? -INFINITY : INFINITY};
+}
+
+// a, then b, in closed form (the JAX package's `combine`).
+template <bool IS_MAX>
+__device__ __forceinline__ Fn k7_then(Fn a, Fn b) {
+  return Fn{__fadd_rn(a.s, b.s), k7_op<IS_MAX>(__fadd_rn(a.m, b.s), b.m)};
+}
+
+template <bool IS_MAX>
+__device__ __forceinline__ float k7_apply(Fn f, float c) {
+  return k7_op<IS_MAX>(__fadd_rn(c, f.s), f.m);
+}
+
+// The carry into this lane: the composition of the lanes before it (after
+// it with REVERSE) applied to the identity's carry, by a Kogge-Stone scan
+// over the warp's shuffles.  Every lane of the warp calls it.
+template <bool IS_MAX, bool REVERSE>
+__device__ __forceinline__ float k7_lane_carry(Fn f, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float s = REVERSE ? __shfl_down_sync(FULL, f.s, off) : __shfl_up_sync(FULL, f.s, off);
+    const float m = REVERSE ? __shfl_down_sync(FULL, f.m, off) : __shfl_up_sync(FULL, f.m, off);
+    if (REVERSE ? lane + off < 32 : lane >= off) f = k7_then<IS_MAX>(Fn{s, m}, f);
+  }
+  const float m = REVERSE ? __shfl_down_sync(FULL, f.m, 1) : __shfl_up_sync(FULL, f.m, 1);
+  return (REVERSE ? lane == 31 : lane == 0) ? k7_ident<IS_MAX>().m : m;
+}
+
 // One pixel's vertical step functions c -> max(c + s_lo, m_lo) and
 // c -> min(c + s_hi, m_hi): a hole inside the mask decays the carry by
 // max_step, a pixel with a disparity resets it to d -+ max_step, and a
 // pixel outside the mask resets it to the initial bounds.
 struct K7Vertical {
-  float s_lo, m_lo, s_hi, m_hi;
+  Fn lo, hi;
 };
 
 __device__ __forceinline__ K7Vertical k7_vertical(float d, bool mask, float MD) {
   const bool has_d = mask && d != RTT_NOMATCH;
   const bool hole = mask && !has_d;
   K7Vertical v;
-  v.s_lo = hole ? -MD : -K7_BIG;
-  v.s_hi = hole ? MD : K7_BIG;
-  v.m_lo = mask ? fmaxf(has_d ? __fsub_rn(d, MD) : K7_LO, K7_LO) : K7_LO;
-  v.m_hi = mask ? fminf(has_d ? __fadd_rn(d, MD) : K7_HI, K7_HI) : K7_HI;
+  v.lo.s = hole ? -MD : -K7_BIG;
+  v.hi.s = hole ? MD : K7_BIG;
+  v.lo.m = mask ? fmaxf(has_d ? __fsub_rn(d, MD) : K7_LO, K7_LO) : K7_LO;
+  v.hi.m = mask ? fminf(has_d ? __fadd_rn(d, MD) : K7_HI, K7_HI) : K7_HI;
   return v;
 }
 
-__global__ void __launch_bounds__(K7_COL_THREADS)
+// A lane's K7C_PER_LANE segments of one chain: fold them (in application
+// order), scan the lanes, and leave each segment's carry-in in its m.
+template <bool IS_MAX, bool REVERSE>
+__device__ __forceinline__ void k7_segment_carries(Fn* f, int lane) {
+  Fn g[K7C_PER_LANE];
+  Fn acc = k7_ident<IS_MAX>();
+#pragma unroll
+  for (int u = 0; u < K7C_PER_LANE; ++u) {
+    g[u] = f[u];
+  }
+#pragma unroll
+  for (int u = 0; u < K7C_PER_LANE; ++u)
+    acc = k7_then<IS_MAX>(acc, g[REVERSE ? K7C_PER_LANE - 1 - u : u]);
+  float c = k7_lane_carry<IS_MAX, REVERSE>(acc, lane);
+#pragma unroll
+  for (int u = 0; u < K7C_PER_LANE; ++u) {
+    const int j = REVERSE ? K7C_PER_LANE - 1 - u : u;
+    f[j].m = c;
+    c = k7_apply<IS_MAX>(g[j], c);
+  }
+}
+
+__global__ void __launch_bounds__(K7C_THREADS)
 propagate_bounds_columns_kernel(const float* __restrict__ disp,
                                 const unsigned char* __restrict__ valid,
                                 const int* __restrict__ pYL, const int* __restrict__ pYR,
                                 const int* __restrict__ pXL, const int* __restrict__ pXR,
                                 float* __restrict__ BL, float* __restrict__ BR,
                                 float MD, int H, int W) {
-  const int x = blockIdx.x * K7_COL_THREADS + threadIdx.x;
-  if (x >= W) return;
+  // The segments' functions by chain (down lo, down hi, up lo, up hi),
+  // column and segment; after the scan, their carries in m.
+  __shared__ Fn sfn[4][K7C_COLS][K7C_SEGS + 1];
+  const int c = threadIdx.x % K7C_COLS, seg = threadIdx.x / K7C_COLS;
+  const int x = blockIdx.x * K7C_COLS + c;
+  const bool live = x < W;
+  const int L = (H + K7C_SEGS - 1) / K7C_SEGS;
+  const int y0 = min(seg * L, H), y1 = live ? min(y0 + L, H) : y0;
   const Box box = load_box(pYL, pYR, pXL, pXR);
   const bool in_col = box.col(x);
+  auto pix = [&](int y) { return (size_t)y * W + x; };
+  auto step = [&](float d, unsigned char v, int y) {
+    return k7_vertical(d, v && in_col && box.row(y), MD);
+  };
 
-  // Down: each row's carry-in (the initial bounds on row 0) is stored.
-  float c_lo = -INFINITY, c_hi = INFINITY;
-  for (int y0 = 0; y0 < H; y0 += K7_COL_BATCH) {
-    float d[K7_COL_BATCH];
-    bool v[K7_COL_BATCH];
+  // Fold: down appends each row, up prepends it.  The down fold so far at
+  // each batch's start after the first (the function of the segment's rows
+  // above it) is kept in the previous batch's last two rows of BL and BR,
+  // scratch until the replay writes them.
+  Fn dl = k7_ident<true>(), dh = k7_ident<false>(), ul = k7_ident<true>(),
+     uh = k7_ident<false>();
+  for (int yb = y0; yb < y1; yb += K7C_BATCH) {
+    if (yb > y0) {
+      BL[pix(yb - 2)] = dl.s;
+      BL[pix(yb - 1)] = dl.m;
+      BR[pix(yb - 2)] = dh.s;
+      BR[pix(yb - 1)] = dh.m;
+    }
+    float d[K7C_BATCH];
+    unsigned char v[K7C_BATCH];
 #pragma unroll
-    for (int u = 0; u < K7_COL_BATCH; ++u) {
-      const size_t p = (size_t)min(y0 + u, H - 1) * W + x;
+    for (int u = 0; u < K7C_BATCH; ++u) {
+      const size_t p = pix(min(yb + u, y1 - 1));
       d[u] = disp[p];
-      v[u] = valid[p] != 0;
+      v[u] = valid[p];
     }
 #pragma unroll
-    for (int u = 0; u < K7_COL_BATCH; ++u) {
-      const int y = y0 + u;
-      if (y >= H) break;
-      const size_t p = (size_t)y * W + x;
-      BL[p] = y > 0 ? c_lo : K7_LO;
-      BR[p] = y > 0 ? c_hi : K7_HI;
-      const K7Vertical s = k7_vertical(d[u], v[u] && in_col && box.row(y), MD);
-      c_lo = fmaxf(__fadd_rn(c_lo, s.s_lo), s.m_lo);
-      c_hi = fminf(__fadd_rn(c_hi, s.s_hi), s.m_hi);
+    for (int u = 0; u < K7C_BATCH; ++u) {
+      if (yb + u >= y1) break;
+      const K7Vertical s = step(d[u], v[u], yb + u);
+      dl = k7_then<true>(dl, s.lo);
+      dh = k7_then<false>(dh, s.hi);
+      ul = k7_then<true>(s.lo, ul);
+      uh = k7_then<false>(s.hi, uh);
     }
   }
+  sfn[0][c][seg] = dl;
+  sfn[1][c][seg] = dh;
+  sfn[2][c][seg] = ul;
+  sfn[3][c][seg] = uh;
+  __syncthreads();
 
-  // Up: combined with the down carry; a pixel with a disparity keeps it,
-  // except on row YL, where the up carry is max-/min-written into it
-  // after the down sweep pinned it (`:872-881` runs after `:842-869`).
-  c_lo = -INFINITY;
-  c_hi = INFINITY;
-  for (int y1 = H - 1; y1 >= 0; y1 -= K7_COL_BATCH) {
-    float d[K7_COL_BATCH], dn_lo[K7_COL_BATCH], dn_hi[K7_COL_BATCH];
-    bool v[K7_COL_BATCH];
+  // Scan: a warp per chain and column, each lane K7C_PER_LANE segments.
+  {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int chain = warp / K7C_COLS;
+    Fn* f = sfn[chain][warp % K7C_COLS] + lane * K7C_PER_LANE;
+    if (chain == 0) k7_segment_carries<true, false>(f, lane);
+    else if (chain == 1) k7_segment_carries<false, false>(f, lane);
+    else if (chain == 2) k7_segment_carries<true, true>(f, lane);
+    else k7_segment_carries<false, true>(f, lane);
+  }
+  __syncthreads();
+
+  // Replay, a batch at a time from the segment's last up: the down carry
+  // into the batch (its kept fold applied to the segment's down carry),
+  // each row's down carry-in (the initial bounds on row 0), then up,
+  // combined with it; a pixel with a disparity keeps it, except on row YL,
+  // where the up carry is max-/min-written into it after the down sweep
+  // pinned it (`:872-881` runs after `:842-869`).
+  const float in_lo = sfn[0][c][seg].m, in_hi = sfn[1][c][seg].m;
+  float c_lo = sfn[2][c][seg].m, c_hi = sfn[3][c][seg].m;
+  for (int yb = y0 + (y1 - y0 - 1) / K7C_BATCH * K7C_BATCH; yb >= y0 && y1 > y0;
+       yb -= K7C_BATCH) {
+    float dn_lo = in_lo, dn_hi = in_hi;
+    if (yb > y0) {
+      dn_lo = k7_apply<true>(Fn{BL[pix(yb - 2)], BL[pix(yb - 1)]}, in_lo);
+      dn_hi = k7_apply<false>(Fn{BR[pix(yb - 2)], BR[pix(yb - 1)]}, in_hi);
+    }
+    float d[K7C_BATCH], dlo[K7C_BATCH], dhi[K7C_BATCH];
+    bool mask[K7C_BATCH];
 #pragma unroll
-    for (int u = 0; u < K7_COL_BATCH; ++u) {
-      const size_t p = (size_t)max(y1 - u, 0) * W + x;
-      d[u] = disp[p];
-      v[u] = valid[p] != 0;
-      dn_lo[u] = BL[p];
-      dn_hi[u] = BR[p];
+    for (int u = 0; u < K7C_BATCH; ++u) {
+      const int y = min(yb + u, y1 - 1);
+      d[u] = disp[pix(y)];
+      mask[u] = valid[pix(y)] && in_col && box.row(y);
     }
 #pragma unroll
-    for (int u = 0; u < K7_COL_BATCH; ++u) {
-      const int y = y1 - u;
-      if (y < 0) break;
-      const size_t p = (size_t)y * W + x;
+    for (int u = 0; u < K7C_BATCH; ++u) {
+      const int y = yb + u;
+      dlo[u] = y > 0 ? dn_lo : K7_LO;
+      dhi[u] = y > 0 ? dn_hi : K7_HI;
+      const K7Vertical s = k7_vertical(d[u], mask[u], MD);
+      dn_lo = k7_apply<true>(s.lo, dn_lo);
+      dn_hi = k7_apply<false>(s.hi, dn_hi);
+    }
+#pragma unroll
+    for (int u = K7C_BATCH - 1; u >= 0; --u) {
+      const int y = yb + u;
+      if (y >= y1) continue;
       const float up_lo = y < H - 1 ? c_lo : K7_LO;
       const float up_hi = y < H - 1 ? c_hi : K7_HI;
-      const bool mask = v[u] && in_col && box.row(y);
-      if (mask && d[u] != RTT_NOMATCH) {
-        BL[p] = y == box.YL ? fmaxf(d[u], up_lo) : d[u];
-        BR[p] = y == box.YL ? fminf(d[u], up_hi) : d[u];
+      if (mask[u] && d[u] != RTT_NOMATCH) {
+        BL[pix(y)] = y == box.YL ? fmaxf(d[u], up_lo) : d[u];
+        BR[pix(y)] = y == box.YL ? fminf(d[u], up_hi) : d[u];
       } else {
-        BL[p] = fmaxf(dn_lo[u], up_lo);
-        BR[p] = fminf(dn_hi[u], up_hi);
+        BL[pix(y)] = fmaxf(dlo[u], up_lo);
+        BR[pix(y)] = fminf(dhi[u], up_hi);
       }
-      const K7Vertical s = k7_vertical(d[u], mask, MD);
-      c_lo = fmaxf(__fadd_rn(c_lo, s.s_lo), s.m_lo);
-      c_hi = fminf(__fadd_rn(c_hi, s.s_hi), s.m_hi);
+      const K7Vertical s = k7_vertical(d[u], mask[u], MD);
+      c_lo = k7_apply<true>(s.lo, c_lo);
+      c_hi = k7_apply<false>(s.hi, c_hi);
     }
   }
 }
 
-// One bound's row chains in shared memory: forward, c <- op(c + s, b[x])
-// with s = fstep after a mask pixel and the sentinel after a gap; then
-// backward, with b[x] <- op(op(b[x], carry-in) + x, T) and the carry
-// c <- op(c + bstep, op(b[x], T - x) + bstep) at mask pixels, reset by the
-// sentinel elsewhere.  The lower bound: op = max, fstep = -1, bstep =
-// -max_step, T = the target's XL; the upper: min, max_step, 1, XR.
-template <bool IS_MAX>
-__device__ void k7_row_chains(float* b, const unsigned char* mk, float fstep, float bstep,
-                              float T, int W) {
-  const float sentinel = IS_MAX ? -K7_BIG : K7_BIG;
-  float c = IS_MAX ? -INFINITY : INFINITY;
-#pragma unroll 4
-  for (int x = 0; x < W; ++x) {
-    const float s = x > 0 && mk[x - 1] ? fstep : sentinel;
-    c = k7_op<IS_MAX>(__fadd_rn(c, s), b[x]);
-    b[x] = c;
-  }
-  c = IS_MAX ? -INFINITY : INFINITY;
-#pragma unroll 4
-  for (int x = W - 1; x >= 0; --x) {
-    const float xf = (float)x, bx = b[x];
-    const bool m = mk[x] != 0;
-    const float inc = x < W - 1 ? c : sentinel;
-    b[x] = k7_op<IS_MAX>(__fadd_rn(k7_op<IS_MAX>(bx, inc), xf), T);
-    const float mv = m ? __fadd_rn(k7_op<IS_MAX>(bx, __fsub_rn(T, xf)), bstep) : sentinel;
-    c = k7_op<IS_MAX>(__fadd_rn(c, m ? bstep : sentinel), mv);
-  }
+// A row-pass warp's staging: its row's two maps and mask.
+__host__ __device__ __forceinline__ size_t k7_row_bytes(int W) {
+  return (size_t)W * 2 * sizeof(float) + (((size_t)W + 15) & ~(size_t)15);
 }
 
-__global__ void __launch_bounds__(K7_ROW_THREADS)
+// The row pass: a warp a row.  Forward: fold each lane's run of
+// c <- op(c + s, b[x]) (s = fstep after a mask pixel, the sentinel after a
+// gap), scan, replay; the replay also folds the backward functions, prepending
+// each column: c <- op(c + bstep, op(b[x], T - x) + bstep) at mask pixels,
+// the sentinel's reset elsewhere.  Backward: scan from the last lane, then
+// replay, b[x] <- op(op(b[x], carry-in) + x, T).  The lower bound: op =
+// max, fstep = -1, bstep = -max_step, T = the target's XL; the upper: min,
+// max_step, 1, XR.
+__global__ void __launch_bounds__(32 * K7R_ROWS)
 propagate_bounds_rows_kernel(const unsigned char* __restrict__ valid,
                              const int* __restrict__ pYL, const int* __restrict__ pYR,
                              const int* __restrict__ pXL, const int* __restrict__ pXR,
                              const int* __restrict__ ptXL, const int* __restrict__ ptXR,
                              float* __restrict__ BL, float* __restrict__ BR, float MD,
-                             int W) {
+                             int H, int W, int rows, int run) {
   extern __shared__ __align__(16) unsigned char k7_smem[];
-  float* bl = reinterpret_cast<float*>(k7_smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int y = blockIdx.x * rows + warp;
+  if (y >= H) return;      // a whole warp; the pass has no block barrier
+  float* bl = reinterpret_cast<float*>(k7_smem + warp * k7_row_bytes(W));
   float* br = bl + W;
   unsigned char* mk = reinterpret_cast<unsigned char*>(br + W);
-  const int y = blockIdx.x;
   const Box box = load_box(pYL, pYR, pXL, pXR);
+  const float TL = (float)*ptXL, TR = (float)*ptXR;
   const size_t row = (size_t)y * W;
-  for (int x = threadIdx.x; x < W; x += K7_ROW_THREADS) {
+#pragma unroll 8
+  for (int x = lane; x < W; x += 32) {
     bl[x] = BL[row + x];
     br[x] = BR[row + x];
     mk[x] = valid[row + x] && box.row(y) && box.col(x);
   }
-  __syncthreads();
-  if (threadIdx.x == 0)
-    k7_row_chains<true>(bl, mk, -1.0f, -MD, (float)*ptXL, W);
-  else if (threadIdx.x == 32)
-    k7_row_chains<false>(br, mk, MD, 1.0f, (float)*ptXR, W);
-  __syncthreads();
-  for (int x = threadIdx.x; x < W; x += K7_ROW_THREADS) {
+  __syncwarp();
+  const int x0 = min(lane * run, W), x1 = min(x0 + run, W);
+
+  Fn fl = k7_ident<true>(), fh = k7_ident<false>();
+  for (int x = x0; x < x1; ++x) {
+    const bool left = x > 0 && mk[x - 1];
+    fl = k7_then<true>(fl, Fn{left ? -1.0f : -K7_BIG, bl[x]});
+    fh = k7_then<false>(fh, Fn{left ? MD : K7_BIG, br[x]});
+  }
+  float cl = k7_lane_carry<true, false>(fl, lane);
+  float ch = k7_lane_carry<false, false>(fh, lane);
+
+  Fn gl = k7_ident<true>(), gh = k7_ident<false>();
+  for (int x = x0; x < x1; ++x) {
+    const bool left = x > 0 && mk[x - 1], m = mk[x] != 0;
+    const float xf = (float)x;
+    cl = k7_op<true>(__fadd_rn(cl, left ? -1.0f : -K7_BIG), bl[x]);
+    ch = k7_op<false>(__fadd_rn(ch, left ? MD : K7_BIG), br[x]);
+    bl[x] = cl;
+    br[x] = ch;
+    gl = k7_then<true>(Fn{m ? -MD : -K7_BIG,
+                          m ? __fadd_rn(fmaxf(cl, __fsub_rn(TL, xf)), -MD) : -K7_BIG}, gl);
+    gh = k7_then<false>(Fn{m ? 1.0f : K7_BIG,
+                           m ? __fadd_rn(fminf(ch, __fsub_rn(TR, xf)), 1.0f) : K7_BIG}, gh);
+  }
+  cl = k7_lane_carry<true, true>(gl, lane);
+  ch = k7_lane_carry<false, true>(gh, lane);
+
+  for (int x = x1 - 1; x >= x0; --x) {
+    const bool m = mk[x] != 0;
+    const float xf = (float)x, bx_l = bl[x], bx_h = br[x];
+    bl[x] = fmaxf(__fadd_rn(fmaxf(bx_l, x < W - 1 ? cl : -K7_BIG), xf), TL);
+    br[x] = fminf(__fadd_rn(fminf(bx_h, x < W - 1 ? ch : K7_BIG), xf), TR);
+    cl = fmaxf(__fadd_rn(cl, m ? -MD : -K7_BIG),
+               m ? __fadd_rn(fmaxf(bx_l, __fsub_rn(TL, xf)), -MD) : -K7_BIG);
+    ch = fminf(__fadd_rn(ch, m ? 1.0f : K7_BIG),
+               m ? __fadd_rn(fminf(bx_h, __fsub_rn(TR, xf)), 1.0f) : K7_BIG);
+  }
+  __syncwarp();
+#pragma unroll 8
+  for (int x = lane; x < W; x += 32) {
     BL[row + x] = bl[x];
     BR[row + x] = br[x];
   }
+}
+
+// The geometry of K7 at H x W: columns a column-pass block, segments a
+// column, rows a segment, columns a lane's run, rows a row-pass block, and
+// the two passes' blocks.
+struct K7Layout {
+  int cols, segs, seg_rows, run, rows, col_blocks, row_blocks;
+};
+
+K7Layout k7_layout(int H, int W) {
+  K7Layout g;
+  g.cols = K7C_COLS;
+  g.segs = K7C_SEGS;
+  g.seg_rows = (H + K7C_SEGS - 1) / K7C_SEGS;
+  g.run = (W + 31) / 32;
+  g.run += 1 - g.run % 2;              // odd: lanes on distinct banks
+  const int fit = (int)((size_t)K7R_SMEM / k7_row_bytes(W));
+  g.rows = fit < 1 ? 1 : (fit > K7R_ROWS ? K7R_ROWS : fit);
+  g.col_blocks = (W + K7C_COLS - 1) / K7C_COLS;
+  g.row_blocks = (H + g.rows - 1) / g.rows;
+  return g;
 }
 
 // Dynamic shared memory above the default 48 KB must be asked for.
@@ -352,7 +603,7 @@ RTT_API int rtt_ordering(const void* disp, void* out, const void* YL, const void
                          const void* XL, const void* XR, int H, int W, void* stream) {
   if (W < 1 || W > RTT_CONSTRAINTS_MAX_W || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)W * (sizeof(float) + sizeof(int) + sizeof(unsigned short));
+  const size_t smem = (size_t)W * K6_BYTES_PER_COLUMN;
   cudaError_t err = allow_smem(ordering_constraint_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ordering_constraint_kernel<<<H, K6_THREADS, smem, rtt_stream(stream)>>>(
@@ -362,12 +613,22 @@ RTT_API int rtt_ordering(const void* disp, void* out, const void* YL, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+RTT_API int rtt_propagate_bounds_layout(int H, int W, int* out) {
+  if (W < 1 || W > RTT_CONSTRAINTS_MAX_W || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const K7Layout g = k7_layout(H, W);
+  const int v[7] = {g.cols, g.segs, g.seg_rows, g.run, g.rows, g.col_blocks, g.row_blocks};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
 RTT_API int rtt_propagate_bounds(const void* disp, const void* valid, const void* YL,
                                  const void* YR, const void* XL, const void* XR,
                                  const void* tXL, const void* tXR, void* BL, void* BR,
                                  float max_step, int H, int W, void* stream) {
   if (W < 1 || W > RTT_CONSTRAINTS_MAX_W || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const K7Layout g = k7_layout(H, W);
   const int* yl = static_cast<const int*>(YL);
   const int* yr = static_cast<const int*>(YR);
   const int* xl = static_cast<const int*>(XL);
@@ -375,16 +636,15 @@ RTT_API int rtt_propagate_bounds(const void* disp, const void* valid, const void
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   float* bl = static_cast<float*>(BL);
   float* br = static_cast<float*>(BR);
-  propagate_bounds_columns_kernel<<<(W + K7_COL_THREADS - 1) / K7_COL_THREADS,
-                                    K7_COL_THREADS, 0, rtt_stream(stream)>>>(
+  propagate_bounds_columns_kernel<<<g.col_blocks, K7C_THREADS, 0, rtt_stream(stream)>>>(
       static_cast<const float*>(disp), v, yl, yr, xl, xr, bl, br, max_step, H, W);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = (size_t)W * (2 * sizeof(float) + 1);
+  const size_t smem = g.rows * k7_row_bytes(W);
   err = allow_smem(propagate_bounds_rows_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  propagate_bounds_rows_kernel<<<H, K7_ROW_THREADS, smem, rtt_stream(stream)>>>(
+  propagate_bounds_rows_kernel<<<g.row_blocks, 32 * g.rows, smem, rtt_stream(stream)>>>(
       v, yl, yr, xl, xr, static_cast<const int*>(tXL), static_cast<const int*>(tXR), bl,
-      br, max_step, W);
+      br, max_step, H, W, g.rows, g.run);
   return static_cast<int>(cudaGetLastError());
 }

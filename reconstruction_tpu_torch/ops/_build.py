@@ -54,6 +54,7 @@ _SIGNATURES = {
     "rtt_ncc_sweep_mxu_layout": [_I, _I, _P],
     "rtt_ordering": [_P] * 6 + [_I] * 2 + [_P],
     "rtt_propagate_bounds": [_P] * 10 + [_F] + [_I] * 2 + [_P],
+    "rtt_propagate_bounds_layout": [_I, _I, _P],
 }
 
 

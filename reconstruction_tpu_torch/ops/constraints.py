@@ -6,10 +6,13 @@ Both passes are sequential along a scanline in the reference
 (`CStereoMatching.cpp:310-368`, `:817-942`).  The plain versions are the
 JAX package's TPU formulation: a greedy loop stepped for all rows at once
 whose end is read back from the device every few steps, and associative
-scans evaluated with `jax.lax.associative_scan`'s pairing tree.  The
-kernels run the recurrences themselves, one row (K6, K7's row pass) or
-one column (K7's column pass) to a thread block or a thread, with the
-margins read from the device: a call never waits for the device.
+scans evaluated with `jax.lax.associative_scan`'s pairing tree.  K6 gives
+a row to a thread block (crossing counts by merge sort, the greedy loop
+on one warp over the points that cross any); K7 composes its step
+functions in segments of a column (128 a column) and in runs of a row (a
+warp's 32 lanes), scans them across the segments and lanes and replays
+them (`k7_layout`).  The margins are read from the device: a call never
+waits for the device.
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each
@@ -17,17 +20,18 @@ wrapper adds the kernels it launches to its `.launches` attribute: one a
 K6 call, two a K7 call (the column pass, then the row pass).
 
 Exactness.  K6 is comparisons and integer counts: bit-equal to
-`ordering_plain` everywhere.  K7's recurrences sum the +-1e9 reset
-sentinels in another order than the scan tree, so an intermediate carry
-near +-1e9 may round to another multiple of 64; every term that can win a
-max or min at an output is a sum of small integers, so the outputs are
-bit-equal to `propagate_bounds_plain` at every mask-valid source pixel,
-the pixels the reference defines them at (the CPU tests find them equal
-everywhere on their inputs).
+`ordering_plain` everywhere.  K7 groups the scans' operator in another
+way than the scan tree, so its sums of the +-1e9 reset sentinels may
+round to another multiple of 64; every term that can win a max or min at
+an output is a sum of small integers, so the outputs are bit-equal to
+`propagate_bounds_plain` at every mask-valid source pixel, the pixels the
+reference defines them at (the CPU tests model the kernels' grouping and
+find them equal everywhere on their inputs).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, List, Tuple
 
 import torch
@@ -40,10 +44,14 @@ from reconstruction_tpu_torch.stereo.ncc import shifted
 
 _BIG = 1e9
 _NM = float(NOMATCH)
-# Widest row the kernels take: K6 keeps 10 bytes a column of a row in
-# shared memory, K7's row pass 9, and K6's (count, column) key packs the
-# column into 16 bits (csrc/constraints.cu, RTT_CONSTRAINTS_MAX_W).
+# Widest row the kernels take: K6 keeps 14 bytes a column of a row in
+# shared memory (227 KB at most a block), K7's row pass 9, and K6's
+# (count, index) key and sort buffers hold an index in 16 bits
+# (csrc/constraints.cu, RTT_CONSTRAINTS_MAX_W).
 MAX_WIDTH = 16384
+# K7's layout entries (`k7_layout`, `rtt_propagate_bounds_layout`).
+_K7_LAYOUT_KEYS = ("columns_a_block", "segments", "segment_rows", "run", "rows_a_block",
+                   "column_blocks", "row_blocks")
 
 
 def _nm(like: torch.Tensor) -> torch.Tensor:
@@ -287,6 +295,18 @@ def propagate_bounds_plain(
     inc_hi = torch.cat([c_hi[:, 1:], big.expand(H, 1)], 1)
     BR_abs = torch.minimum(torch.minimum(BR, inc_hi) + x, XR1)
     return BL_abs, BR_abs
+
+
+def k7_layout(H: int, W: int) -> dict:
+    """K7's geometry at H x W as `csrc/constraints.cu` defines it
+    (`rtt_propagate_bounds_layout`; needs the built kernels): columns a
+    column-pass block, segments a column and rows a segment, columns a
+    lane's run of a row, rows (warps) a row-pass block, and each pass's
+    blocks."""
+    out = (ctypes.c_int * len(_K7_LAYOUT_KEYS))()
+    _build.check(_build.load().rtt_propagate_bounds_layout(H, W, out),
+                 "rtt_propagate_bounds_layout")
+    return dict(zip(_K7_LAYOUT_KEYS, out))
 
 
 def propagate_bounds(

@@ -72,6 +72,7 @@ def test_port_import_graph_has_no_jax():
         "import reconstruction_tpu_torch.bench\n"
         "import reconstruction_tpu_torch.tools.demo_video\n"
         "import reconstruction_tpu_torch.tools.bench_scaling\n"
+        "import reconstruction_tpu_torch.tools.k67_phase_clocks\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'reconstruction_tpu', 'yaml', 'bench'))\n"
         "assert not bad, bad\n"
