@@ -486,12 +486,12 @@ def merge_and_print(results, attempts, card=None):
     stereo = results.get("stereo", {})
     kernels = results.get("kernels", {}).get("kernels", {})
     base = full or stereo
-    vps = base.get("views_per_s", 0.0)
+    value = round(base.get("views_per_s", 0.0), 4)
     out = {
         "metric": "views_fused_per_sec_per_chip",
-        "value": round(vps, 4),
+        "value": value,
         "unit": "views/s",
-        "vs_baseline": round(vps / REFERENCE_VIEWS_PER_SEC, 2),
+        "vs_baseline": round(value / REFERENCE_VIEWS_PER_SEC, 2),
         "chip": base.get("chip") or results.get("kernels", {}).get("chip"),
     }
     for k in ("matching_s", "total_s", "cold_total_s", "stages_s", "mesh",

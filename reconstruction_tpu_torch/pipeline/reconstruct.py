@@ -48,7 +48,7 @@ from reconstruction_tpu_torch.surface.mesh import (
 from reconstruction_tpu_torch.surface.poisson import poisson_reconstruct
 from reconstruction_tpu_torch.surface.texture import texture_vertices
 from reconstruction_tpu_torch.utils.logging import StageStats, get_logger
-from reconstruction_tpu_torch.utils.timing import Timer
+from reconstruction_tpu_torch.utils.timing import Timer, span
 
 log = get_logger(__name__)
 
@@ -181,29 +181,32 @@ def reconstruct(
         """SOR + normals for one pair (`CCloudOptimization::filter`,
         `CCloudOptimization.cpp:64-121`)."""
         cloud = res.cloud
-        host_xyz, host_valid, host_colors = (_np(a) for a in (
-            cloud.xyz, cloud.valid, cloud.colors))
-        keep = sor_filter(cloud.xyz, cloud.valid, mean_k=cc.sor_mean_k,
-                          std_thresh=cc.sor_std_thresh, host_points=host_xyz,
-                          host_valid=host_valid, backend=cc.backend)
+        with span("sor"):
+            host_xyz, host_valid, host_colors = (_np(a) for a in (
+                cloud.xyz, cloud.valid, cloud.colors))
+            keep = sor_filter(cloud.xyz, cloud.valid, mean_k=cc.sor_mean_k,
+                              std_thresh=cc.sor_std_thresh, host_points=host_xyz,
+                              host_valid=host_valid, backend=cc.backend)
         # Optional radius outlier removal (commented out in the reference,
         # `CCloudOptimization.cpp:90-96`), in the same SOR -> outrem order.
         if cc.use_radius_outlier_removal:
-            if backend == "native":
-                keep = radius_outlier_filter_np(host_xyz, keep, radius=cc.outrem_radius,
-                                                min_neighbors=cc.outrem_neighbors)
-            else:
-                keep = radius_outlier_filter(cloud.xyz, keep, radius=cc.outrem_radius,
-                                             min_neighbors=cc.outrem_neighbors,
-                                             host_points=host_xyz, host_valid=host_valid)
+            with span("outrem"):
+                if backend == "native":
+                    keep = radius_outlier_filter_np(host_xyz, keep, radius=cc.outrem_radius,
+                                                    min_neighbors=cc.outrem_neighbors)
+                else:
+                    keep = radius_outlier_filter(cloud.xyz, keep, radius=cc.outrem_radius,
+                                                 min_neighbors=cc.outrem_neighbors,
+                                                 host_points=host_xyz, host_valid=host_valid)
         # Normals, flipped toward the pair's camera (`:101-121`).
-        nrm = estimate_normals(cloud.xyz, keep, radius=cc.mls_radius,
-                               viewpoint=np.asarray(res.rectification.T_final, np.float32),
-                               host_points=host_xyz, host_valid=host_valid,
-                               backend=cc.backend)
-        keepn = _np(keep)
-        return dict(xyz=host_xyz[keepn], nrm=_np(nrm)[keepn], col=host_colors[keepn],
-                    raw_points=int(host_valid.sum()))
+        with span("normals"):
+            nrm = estimate_normals(cloud.xyz, keep, radius=cc.mls_radius,
+                                   viewpoint=np.asarray(res.rectification.T_final, np.float32),
+                                   host_points=host_xyz, host_valid=host_valid,
+                                   backend=cc.backend)
+            keepn = _np(keep)
+            return dict(xyz=host_xyz[keepn], nrm=_np(nrm)[keepn], col=host_colors[keepn],
+                        raw_points=int(host_valid.sum()))
 
     all_xyz: List[np.ndarray] = []
     all_nrm: List[np.ndarray] = []
@@ -335,14 +338,20 @@ def reconstruct(
 
     sf = cfg.surface
     with timer.span("mesh_cleanup"):
-        dens = vertex_density(dens_h, (verts - origin_h) / spacing_h)
-        verts, faces = density_trim(verts, faces, dens, quantile=sf.trim_quantile,
-                                    smooth_iters=sf.trim_smooth_iters)
-        verts, faces = remove_small_components(verts, faces, sf.min_component_diag_frac)
-        verts, faces = clean_mesh(verts, faces)
-        verts = laplacian_smooth(verts, faces, iterations=sf.laplacian_steps,
-                                 cotangent=sf.laplacian_cotangent)
-        verts, faces = close_holes(verts, faces, sf.close_holes_max_edges)
+        with span("density"):
+            dens = vertex_density(dens_h, (verts - origin_h) / spacing_h)
+        with span("density_trim"):
+            verts, faces = density_trim(verts, faces, dens, quantile=sf.trim_quantile,
+                                        smooth_iters=sf.trim_smooth_iters)
+        with span("small_components"):
+            verts, faces = remove_small_components(verts, faces, sf.min_component_diag_frac)
+        with span("clean"):
+            verts, faces = clean_mesh(verts, faces)
+        with span("laplacian"):
+            verts = laplacian_smooth(verts, faces, iterations=sf.laplacian_steps,
+                                     cotangent=sf.laplacian_cotangent)
+        with span("close_holes"):
+            verts, faces = close_holes(verts, faces, sf.close_holes_max_edges)
     stats.add("cleanup", verts=len(verts), faces=len(faces))
 
     # Texture (the TextureStitcher equivalent).

@@ -36,6 +36,7 @@ from reconstruction_tpu_torch.stereo.matching import (
 from reconstruction_tpu_torch.stereo.refine import disparity_refine, resolve_recenter
 from reconstruction_tpu_torch.stereo.triangulate import (
     PointCloud, disparity_to_cloud)
+from reconstruction_tpu_torch.utils.timing import span
 
 
 class LevelState(NamedTuple):
@@ -120,30 +121,39 @@ def match_one_level(
 
     ds = []
     for lane, (ai, bi, av, bv, am, bm) in enumerate(lanes):
-        if level == 0:
-            d = brute_force_match(ai, bi, av, bv, am, bm, radius)
-        else:
-            assert coarse is not None
-            ac = coarse.disp0 if lane == 0 else coarse.disp1
-            d = guided_match(ai, bi, av, bv, ac, am, bm, radius, offset)
-        d = smoothness_constraint(d, am)
-        ds.append(ordering_constraint(d, am))
-    d0, d1 = uniqueness_constraint(ds[0], ds[1], m0, m1)
+        with span("match"):
+            if level == 0:
+                d = brute_force_match(ai, bi, av, bv, am, bm, radius)
+            else:
+                assert coarse is not None
+                ac = coarse.disp0 if lane == 0 else coarse.disp1
+                d = guided_match(ai, bi, av, bv, ac, am, bm, radius, offset)
+        with span("constraints"):
+            d = smoothness_constraint(d, am)
+            ds.append(ordering_constraint(d, am))
+    with span("constraints"):
+        d0, d1 = uniqueness_constraint(ds[0], ds[1], m0, m1)
 
     ds = []
     for (ai, bi, av, bv, am, bm), d in zip(lanes, (d0, d1)):
-        bl, br = propagate_bounds(d, av, am, bm)
-        ds.append(rematch(ai, bi, av, bv, d, bl, br, am, radius))
-    d0, d1 = uniqueness_constraint(ds[0], ds[1], m0, m1)
+        with span("constraints"):
+            bl, br = propagate_bounds(d, av, am, bm)
+        with span("rematch"):
+            ds.append(rematch(ai, bi, av, bv, d, bl, br, am, radius))
+    with span("constraints"):
+        d0, d1 = uniqueness_constraint(ds[0], ds[1], m0, m1)
 
     ds, drifts = [], []
     for (ai, bi, av, bv, am, bm), d in zip(lanes, (d0, d1)):
-        d = median_filter(d, av, am, median_iters)
-        out = disparity_refine(d, ai, bi, am, refine_iters, ws, s_cap,
-                               recenter_every=recenter_every, cv_dtype=cv_dtype)
-        ds.append(out)
-        drifts.append(_drift(d, out))
-    d0, d1 = uniqueness_constraint(ds[0], ds[1], m0, m1)
+        with span("median"):
+            d = median_filter(d, av, am, median_iters)
+        with span("refine"):
+            out = disparity_refine(d, ai, bi, am, refine_iters, ws, s_cap,
+                                   recenter_every=recenter_every, cv_dtype=cv_dtype)
+            ds.append(out)
+            drifts.append(_drift(d, out))
+    with span("constraints"):
+        d0, d1 = uniqueness_constraint(ds[0], ds[1], m0, m1)
     return LevelState(disp0=d0, disp1=d1,
                       refine_drift0=drifts[0], refine_drift1=drifts[1])
 
@@ -187,16 +197,19 @@ def remap_pair_views(
     imgs, masks, raw_masks = [], [], []
     for img, msk, K, Rr, P in ((image0, mask0, K0, rect.R1, rect.P1_scaled),
                                (image1, mask1, K1, rect.R2, rect.P2_scaled)):
-        mx, my = rectify_map(K, Rr, P, working)
-        mx = torch.from_numpy(mx).to(device)
-        my = torch.from_numpy(my).to(device)
-        im = remap_bilinear(torch.from_numpy(np.asarray(img, np.float32)).to(device),
-                            mx, my)
-        mk = remap_bilinear(torch.from_numpy(np.asarray(msk, np.float32)).to(device),
-                            mx, my)
-        raw_masks.append(mk)
-        imgs.append(quantize_u8(im))
-        masks.append(erode_mask(mk, se))
+        with span("rectify_map"):
+            mx, my = rectify_map(K, Rr, P, working)
+        with span("upload"):
+            mx = torch.from_numpy(mx).to(device)
+            my = torch.from_numpy(my).to(device)
+            img_d = torch.from_numpy(np.asarray(img, np.float32)).to(device)
+            msk_d = torch.from_numpy(np.asarray(msk, np.float32)).to(device)
+        with span("remap"):
+            im = remap_bilinear(img_d, mx, my)
+            mk = remap_bilinear(msk_d, mx, my)
+            raw_masks.append(mk)
+            imgs.append(quantize_u8(im))
+            masks.append(erode_mask(mk, se))
     return imgs, masks, raw_masks
 
 
@@ -221,68 +234,76 @@ def match_pair(
     ``device`` is where the work runs: the card unless the caller asks
     for "cpu" (the plain versions of the kernels)."""
     device = torch.device(device)
-    origin_size = (image0.shape[1], image0.shape[0])
-    working = cfg.finest_size
-    rect = rectify_pair(K0, Rt0, K1, Rt1, origin_size, working)
-    imgs, masks, raw_masks = remap_pair_views(
-        cfg, image0, image1, mask0, mask1, K0, K1, rect, working, device)
+    with span("match_pair"):
+        origin_size = (image0.shape[1], image0.shape[0])
+        working = cfg.finest_size
+        with span("rectify"):
+            rect = rectify_pair(K0, Rt0, K1, Rt1, origin_size, working)
+        imgs, masks, raw_masks = remap_pair_views(
+            cfg, image0, image1, mask0, mask1, K0, K1, rect, working, device)
 
-    L = cfg.pyramid_levels
-    pyr0 = build_pyramid(imgs[0], L)
-    pyr1 = build_pyramid(imgs[1], L)
-    mpyr0 = [quantize_u8(m) for m in build_pyramid(masks[0], L)]
-    mpyr1 = [quantize_u8(m) for m in build_pyramid(masks[1], L)]
+        L = cfg.pyramid_levels
+        with span("pyramid"):
+            pyr0 = build_pyramid(imgs[0], L)
+            pyr1 = build_pyramid(imgs[1], L)
+            mpyr0 = [quantize_u8(m) for m in build_pyramid(masks[0], L)]
+            mpyr1 = [quantize_u8(m) for m in build_pyramid(masks[1], L)]
 
-    timed = device.type == "cuda"
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(L + 1)] \
-        if timed else []
-    if timed:
-        events[0].record()
-    state: Optional[LevelState] = None
-    drifts = []
-    for level in range(L):
-        state = match_one_level(
-            quantize_u8(pyr0[level]), quantize_u8(pyr1[level]),
-            mpyr0[level], mpyr1[level], state, level,
-            radius=cfg.stereo.block_radius,
-            offset=cfg.stereo.disparity_offset,
-            ws=cfg.stereo.refine_ws,
-            refine_iters=cfg.refine_iterations(level),
-            median_iters=cfg.stereo.median_iterations,
-            refine_impl=cfg.stereo.refine_impl,
-            recenter_every=cfg.stereo.refine_recenter_every,
-            refine_cv_dtype=cfg.stereo.refine_cv_dtype,
-            refine_extract=cfg.stereo.refine_extract,
-        )
-        drifts.append(torch.stack([state.refine_drift0, state.refine_drift1]))
-        if timed:
-            events[level + 1].record()
+        timed = device.type == "cuda"
+        with span("levels"):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(L + 1)] \
+                if timed else []
+            if timed:
+                events[0].record()
+            state: Optional[LevelState] = None
+            drifts = []
+            for level in range(L):
+                with span(f"level{level}"):
+                    state = match_one_level(
+                        quantize_u8(pyr0[level]), quantize_u8(pyr1[level]),
+                        mpyr0[level], mpyr1[level], state, level,
+                        radius=cfg.stereo.block_radius,
+                        offset=cfg.stereo.disparity_offset,
+                        ws=cfg.stereo.refine_ws,
+                        refine_iters=cfg.refine_iterations(level),
+                        median_iters=cfg.stereo.median_iterations,
+                        refine_impl=cfg.stereo.refine_impl,
+                        recenter_every=cfg.stereo.refine_recenter_every,
+                        refine_cv_dtype=cfg.stereo.refine_cv_dtype,
+                        refine_extract=cfg.stereo.refine_extract,
+                    )
+                    drifts.append(torch.stack([state.refine_drift0, state.refine_drift1]))
+                    if timed:
+                        events[level + 1].record()
 
-    finest = L - 1
-    radius = cfg.stereo.block_radius
-    m0 = find_margin(valid_mask(mpyr0[finest]), radius)
-    m1 = find_margin(valid_mask(mpyr1[finest]), radius)
-    scale = cfg.lowest_level_size[0] / origin_size[0] * (1 << finest)
-    cloud = disparity_to_cloud(
-        state.disp0, mpyr0[finest], quantize_u8(pyr0[finest]),
-        rect.Q, rect.R_final, rect.T_final, m0, scale,
-        erode_frac=cfg.stereo.cloud_erode_frac)
+        # The level events' read is the first wait for the levels' device
+        # work, so this span holds that wait.
+        with span("triangulate"):
+            finest = L - 1
+            radius = cfg.stereo.block_radius
+            m0 = find_margin(valid_mask(mpyr0[finest]), radius)
+            m1 = find_margin(valid_mask(mpyr1[finest]), radius)
+            scale = cfg.lowest_level_size[0] / origin_size[0] * (1 << finest)
+            cloud = disparity_to_cloud(
+                state.disp0, mpyr0[finest], quantize_u8(pyr0[finest]),
+                rect.Q, rect.R_final, rect.T_final, m0, scale,
+                erode_frac=cfg.stereo.cloud_erode_frac)
 
-    u8 = torch.uint8
-    level_ms = None
-    if timed:
-        events[-1].synchronize()
-        level_ms = [events[i].elapsed_time(events[i + 1]) for i in range(L)]
-    return PairResult(
-        disparity=state.disp0,
-        cloud=cloud,
-        rectification=rect,
-        margins0=m0,
-        margins1=m1,
-        rect_images=(imgs[0].to(u8), imgs[1].to(u8)),
-        rect_masks=(quantize_u8(raw_masks[0]).to(u8),
-                    quantize_u8(raw_masks[1]).to(u8)),
-        refine_drift=torch.stack(drifts),
-        rect_masks_eroded=(masks[0].to(u8), masks[1].to(u8)),
-        level_ms=level_ms,
-    )
+            u8 = torch.uint8
+            level_ms = None
+            if timed:
+                events[-1].synchronize()
+                level_ms = [events[i].elapsed_time(events[i + 1]) for i in range(L)]
+            return PairResult(
+                disparity=state.disp0,
+                cloud=cloud,
+                rectification=rect,
+                margins0=m0,
+                margins1=m1,
+                rect_images=(imgs[0].to(u8), imgs[1].to(u8)),
+                rect_masks=(quantize_u8(raw_masks[0]).to(u8),
+                            quantize_u8(raw_masks[1]).to(u8)),
+                refine_drift=torch.stack(drifts),
+                rect_masks_eroded=(masks[0].to(u8), masks[1].to(u8)),
+                level_ms=level_ms,
+            )

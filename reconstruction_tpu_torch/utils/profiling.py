@@ -7,7 +7,7 @@
   * `card_line(device)`: the card's name and power limit, as nvidia-smi
     reports them, to write beside every number taken on it;
   * `trace(path)`: `torch.profiler` over a block, written as a Chrome
-    trace;
+    trace with the program's spans on a track of their own;
   * `cuda_activity(prof)`: a finished session's device events, read raw
     (held once a process against `prof.events()`: `check_event_reader`);
   * `KernelCost.utilization`: a measured time against those peaks;
@@ -21,6 +21,7 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import math
 import subprocess
 from dataclasses import dataclass
@@ -66,14 +67,32 @@ def card_line(device="cuda") -> str:
 @contextlib.contextmanager
 def trace(path: str) -> Iterator[torch.profiler.profile]:
     """torch.profiler (CPU and, where there is one, CUDA activity) over the
-    block; the trace is written to ``path`` (Chrome trace JSON)."""
+    block; the trace is written to ``path`` (Chrome trace JSON), with the
+    program's spans recorded inside the block (`utils/timing.span`) on a
+    track of their own ("program spans"), on the device rows' time base."""
     from torch.profiler import ProfilerActivity, profile
+
+    from reconstruction_tpu_torch.utils.timing import span_mark, span_records
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
+    mark = span_mark()
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)   # the trace's ts: microseconds after it
+    pid = "program spans"
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": pid}})
+    for r in span_records(mark):
+        events.append({"ph": "X", "cat": "program_span", "name": r.name, "pid": pid,
+                       "tid": r.thread, "ts": (r.start_ns - base) / 1e3,
+                       "dur": (r.end_ns - r.start_ns) / 1e3, "args": {"parent": r.parent}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def _raw_cuda(prof) -> list:

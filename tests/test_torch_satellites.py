@@ -10,6 +10,7 @@ the roofline table.
 
 import dataclasses
 import importlib
+import json
 import os
 import time
 
@@ -405,7 +406,18 @@ def test_utilization_matches_reference(monkeypatch, flops, nbytes, seconds):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The trace holds the program's spans on their own track, on the time
+    base of the profiler's rows: a span holds the operator run inside it."""
+    from reconstruction_tpu_torch.utils.timing import span
     path = str(tmp_path / "trace.json")
     with tprofiling.trace(path):
-        torch.ones(8).sum()
+        with span("probe_span"):
+            torch.ones(8).sum()
     assert os.path.getsize(path) > 0
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    mine, = [e for e in events if e.get("name") == "probe_span"]
+    assert mine["pid"] == "program spans" and mine["ph"] == "X"
+    ops = [e for e in events if e.get("name") == "aten::sum"]
+    assert ops and all(mine["ts"] <= e["ts"] <= e["ts"] + e["dur"] <= mine["ts"] + mine["dur"]
+                       for e in ops)
