@@ -40,7 +40,11 @@ Phases (any failure raises; the exit code is then non-zero):
      (the entries elsewhere that differ counted), the work that sets their
      time (K6's greedy steps a row and the points that cross any; K7's
      segments a column and runs a row), device time, whole call,
-     plain time and byte bound
+     plain time and byte bound; K8 rectify maps at the `myself` and dome
+     working sizes (1280x1920, 3840x2160), both views, bit-equal to the
+     plain float64 NumPy maps, timed beside their byte bound with the host
+     maps' time and upload, and a `myself` match_pair with K8's maps
+     against one with the host's maps (`phase_rectify_map`)
   4. match_pair on a rendered 1280x1920 two-view scene, preset "myself",
      twice, with the kernels' launch counts, per-level times, cloud
      metrics and determinism, its seconds by stage (the card synchronized
@@ -109,7 +113,7 @@ Phases (any failure raises; the exit code is then non-zero):
 
 Named phases run alone (no kernels line, no result): kernels, slice, small,
 mxu, ba, front, reconstruct, cli, video, satellites, parallel, dome, bench,
-scaling.
+scaling, rectify_map.
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -155,17 +159,23 @@ def peaks() -> dict:
     return CHIP_PEAKS["h100"]
 
 
-def bound(nbytes: float, ops: float, int8_ops: float = 0.0) -> dict:
+# The H100 SXM's float64 rate outside the tensor cores (NVIDIA's data sheet).
+FLOPS_F64 = 34e12
+
+
+def bound(nbytes: float, ops: float, int8_ops: float = 0.0, f64_ops: float = 0.0) -> dict:
     """The least time the card could take for the work: the largest of the
     bytes that must move over the memory rate, the float32 operations over
-    their peak rate and the int8 tensor-core operations over theirs (the
-    two units run side by side), and which of bytes or operations sets it."""
+    their peak rate, the int8 tensor-core operations over theirs and the
+    float64 ones over theirs (the units run side by side), and which of
+    bytes or operations sets it."""
     p = peaks()
     t_bytes = nbytes / p["hbm_gbps"] * 1e3
-    t_ops = max(ops / p["flops_f32"], int8_ops / p["int8_ops"]) * 1e3
+    t_ops = max(ops / p["flops_f32"], int8_ops / p["int8_ops"], f64_ops / FLOPS_F64) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=nbytes, bound_ops=ops, bound_int8_ops=int8_ops)
+                bound_bytes=nbytes, bound_ops=ops, bound_int8_ops=int8_ops,
+                bound_f64_ops=f64_ops)
 
 
 def useful_pairs(active, lo, hi) -> float:
@@ -715,11 +725,13 @@ def phase_kernels(card: str) -> dict:
 
     # K6 and K7 on the inputs the myself pair gives them at its finest level.
     results.update(phase_constraints(card))
+    results["rectify_map"] = phase_rectify_map(card)
     return results
 
 
 # Substrings of the port's kernel names, as the profiler reports them.
-PORT_KERNELS = {"ncc_sweep": "ncc_sweep_kernel", "cost_volume": "cost_volume_kernel",
+PORT_KERNELS = {"rectify_map": "rectify_map_kernel",
+                "ncc_sweep": "ncc_sweep_kernel", "cost_volume": "cost_volume_kernel",
                 "refine": "refine_sweep", "ba_coupling": "ba_coupling_kernel",
                 "ncc_sweep_mxu": "ncc_sweep_mxu", "ordering": "ordering_constraint_kernel",
                 "propagate_bounds": "propagate_bounds_"}
@@ -1117,17 +1129,19 @@ def phase_front_end(card: str) -> dict:
 
 def counted(fn, bf16: bool = False):
     """(result, seconds, launches by kernel) of ``fn()``: the pair path's
-    kernel counts (K1's, K3's and K2's by C entry, K6's and K7's) set to 0
+    kernel counts (K8's, K1's, K3's and K2's by C entry, K6's and K7's) set to 0
     just before it and read just after, for K3 and K2 in the volume type of the path
     (float32, or bfloat16 with ``bf16``, named with a "_bf16" suffix).
     Raises if ``fn`` launched K3 or K2 in the other type."""
     import torch
     from reconstruction_tpu_torch.ops import constraints as K67
     from reconstruction_tpu_torch.ops import ncc_sweep as K13
+    from reconstruction_tpu_torch.ops import rectify_map as K8
     from reconstruction_tpu_torch.ops import refine as K2
     dt = torch.bfloat16 if bf16 else torch.float32
     keyed = {"cost_volume": (K13.cost_volume, K13.VOLUME_ENTRIES[dt]),
              "refine_sweeps_fused": (K2.refine_sweeps_fused, K2.SWEEP_ENTRIES[dt])}
+    K8.rectify_map.launches = 0
     K13.ncc_sweep.launches = 0
     K67.ordering.launches = 0
     K67.propagate_bounds.launches = 0
@@ -1139,7 +1153,8 @@ def counted(fn, bf16: bool = False):
         raise AssertionError(f"the {dt} path launched kernels of the other volume type: "
                              f"{other}")
     sfx = "_bf16" if bf16 else ""
-    return out, seconds, dict(ncc_sweep=K13.ncc_sweep.launches,
+    return out, seconds, dict(rectify_map=K8.rectify_map.launches,
+                              ncc_sweep=K13.ncc_sweep.launches,
                               **{name + sfx: w.launches[entry]
                                  for name, (w, entry) in keyed.items()},
                               ordering=K67.ordering.launches,
@@ -1208,7 +1223,7 @@ def phase_reconstruct(card: str) -> dict:
     the myself preset at 1280x1920, 8 cameras on a 42-degree arc rendered
     on the card (quantized as the bench stores them), pairs (0,1), (2,3),
     (4,5), (7,6), mls_radius 0.02, a 256^3 Poisson grid, no dedup.  Two
-    runs: stage seconds, K1/K3/K2/K6/K7 launches, mesh against the scene's
+    runs: stage seconds, K8/K1/K3/K2/K6/K7 launches, mesh against the scene's
     surface and against the reference's vertex count, runs identical.
     A third run with the bfloat16 cost window (refine_cv_dtype), held to
     the same gates.  Then SOR and normals on one pair's raw cloud and MLS
@@ -1281,7 +1296,7 @@ def phase_reconstruct(card: str) -> dict:
     log(f"reconstruct bfloat16 cost window: {wall_b:.2f} s wall ({card}); fused cloud "
         f"{bf['cloud_points']} points, mesh {bf['verts']} vertices / {bf['faces']} faces "
         f"({bf['vert_ratio']:.3f}x of {REF_MESH_VERTS}), RMSE {bf['rmse']:.6f} (float32 "
-        f"{run['rmse']:.6f}), peak {bf['peak_mem_gb']:.2f} GiB, K1/K3/K2/K6/K7 launches "
+        f"{run['rmse']:.6f}), peak {bf['peak_mem_gb']:.2f} GiB, K8/K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches_b)}; stage seconds {bf['spans']}")
     if not (bf["rmse"] <= RMSE_LIMIT and 0.8 <= bf["vert_ratio"] <= 1.25
             and np.isfinite(rec_b.vertices).all() and all(launches_b.values())):
@@ -1363,7 +1378,7 @@ def write_calib(root: str, cams) -> None:
 
 
 def _launch_line(launches: dict) -> str:
-    """K1/K3/K2/K6/K7 launches of a `counted` run."""
+    """K8/K1/K3/K2/K6/K7 launches of a `counted` run."""
     return "/".join(str(n) for n in launches.values())
 
 
@@ -1499,7 +1514,7 @@ def phase_cli(card: str) -> dict:
         f"({len(cli_bytes)} and {len(own_bytes)} bytes); mesh {len(rec.vertices)} "
         f"vertices / {len(rec.faces)} faces, "
         f"interior RMSE {rmse:.6f} (recorded: the myself preset's mls_radius 2.5 is "
-        f"not the bench's), in-process {own_s:.2f} s wall, K1/K3/K2/K6/K7 launches "
+        f"not the bench's), in-process {own_s:.2f} s wall, K8/K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches)} ({card}); stage seconds {spans}")
     for name, n in launches.items():
         if n <= 0:
@@ -2017,7 +2032,7 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
     log(f"parallel (b) dryrun over the four ranks (pair 2 x tile 2, then 4 z tiles): every "
         f"rank the same summary {all(d == dry[0] for d in dry)}: {dry[0]}")
     path_ok = all(r["launches"]["match_pairs_sharded"][k] > 0 for r in per_rank
-                  for k in ("ncc_sweep", "cost_volume", "refine_sweeps_fused"))
+                  for k in ("rectify_map", "ncc_sweep", "cost_volume", "refine_sweeps_fused"))
     k4_ok = all(r["launches"][f"ba_step_sharded@{d:g}"]["ba_coupling"] > 0 for r in per_rank
                 for d in BA_DAMPINGS)
     refine_k2 = all(r["launches"]["refine_tiled"]["refine_sweeps_fused"] > 0
@@ -2150,7 +2165,7 @@ def phase_video(card: str) -> dict:
     verts = [int(len(r.mesh_vertices)) for r in results]
     log(f"video: 4 frames x 6 views {size[0]}x{size[1]}, {wall:.2f} s wall (render "
         f"{sum(render_s):.2f} s of it), per-frame reconstruct seconds "
-        f"{[round(s, 3) for s in frame_s]} ({card}); K1/K3/K2/K6/K7 launches "
+        f"{[round(s, 3) for s in frame_s]} ({card}); K8/K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches)}")
     log(f"video: mesh vertices {verts}, RMSE {[round(v, 6) for v in rmse]}; rig angle "
         f"error (degrees) with closures {[round(e, 4) for e in err]}, chain without "
@@ -2303,7 +2318,7 @@ def phase_satellites(card: str) -> dict:
                         launches=launches, verts=meshes, configs_equal=configs_equal)
     log(f"run_batch: 1 take x 2 expressions, 10 views {size[0]}x{size[1]} (JPEG, "
         f"written in {write_s:.2f} s): {batch_s:.2f} s wall ({card}), meshes {meshes} vertices, "
-        f"config_1/2.yml equal to generate_take_config={configs_equal}, K1/K3/K2/K6/K7 "
+        f"config_1/2.yml equal to generate_take_config={configs_equal}, K8/K1/K3/K2/K6/K7 "
         f"launches {_launch_line(launches)}")
     if not (configs_equal and min(meshes) > 0 and min(launches.values()) > 0):
         raise AssertionError("run_batch outside its gates")
@@ -2601,12 +2616,87 @@ def phase_constraints(card: str) -> dict:
     return constraint_checks(kept, f"myself finest level {size[1]}x{size[0]}", card, reps=10)
 
 
+def phase_rectify_map(card: str) -> dict:
+    """K8 at the working sizes of `myself` (1280x1920) and the dome
+    (3840x2160), on both views of each preset's first pair (the rig of
+    `make_stereo_scene` that the presets render): once under `without_sync`,
+    bit-equal to the plain float64 NumPy maps (`core/remap.sampling_maps`);
+    then the first view's device time beside its bound (8 bytes written a
+    pixel; 20 float64 operations a pixel, a division counted as one), the
+    whole call, the plain version's host time and the two maps' pageable
+    upload that the path made before K8.  Last, a full `myself` match_pair
+    with K8's maps against one with the host's maps uploaded (digests equal).
+    Returns the dome's numbers (the main path's largest size), the myself
+    ones under "myself"."""
+    import torch
+    from reconstruction_tpu_torch.config import preset
+    from reconstruction_tpu_torch.core.camera import synthetic_rig
+    from reconstruction_tpu_torch.core.rectify import rectify_pair
+    from reconstruction_tpu_torch.core.remap import rectify_inverse, sampling_maps
+    from reconstruction_tpu_torch.ops import rectify_map as K8
+    from reconstruction_tpu_torch.stereo import pipeline
+    from reconstruction_tpu_torch.tools.demo_dome import SPAN_DEG
+    from reconstruction_tpu_torch.tools.pair_stages import scene_args
+
+    out = {}
+    for label, name, cameras, span in (("myself", "myself", 2, 7.0),
+                                       ("dome", "dome32", 32, SPAN_DEG)):
+        size = preset(name).finest_size
+        W, H = size
+        cams = synthetic_rig(num_cameras=cameras, radius=8.0, span_deg=span,
+                             focal=1.6 * W, image_size=size)
+        rect = rectify_pair(cams[0].K, cams[0].Rt, cams[1].K, cams[1].Rt, size, size)
+        views = [(rectify_inverse(rect.R1, rect.P1_scaled), cams[0].K),
+                 (rectify_inverse(rect.R2, rect.P2_scaled), cams[1].K)]
+        for v, (M, K) in enumerate(views):
+            mx, my = without_sync(lambda: K8.rectify_map(M, K, size, "cuda"))
+            ref = sampling_maps(M, K, size)
+            equal = all(np.array_equal(a.view(np.uint32), b.cpu().numpy().view(np.uint32))
+                        for a, b in zip(ref, (mx, my)))
+            log(f"K8 rectify_map {label} {W}x{H}, view {v}: bit-equal to the plain "
+                f"float64 NumPy maps={equal}, no host sync")
+            if not equal:
+                raise AssertionError(f"K8 ({label}, view {v}) differs from its plain version")
+        M, K = views[0]
+        fn = lambda: K8.rectify_map(M, K, size, "cuda")
+        plain = lambda: sampling_maps(M, K, size)
+        plain_ms = min(timed(plain)[1] for _ in range(3)) * 1e3
+        maps = plain()
+        upload_ms = min(timed(lambda: [torch.from_numpy(m).to("cuda") for m in maps])[1]
+                        for _ in range(3)) * 1e3
+        res = dict(max_abs_err=0.0, ms=kernel_ms(fn, "rectify_map_kernel", 20),
+                   call_ms=cuda_ms(fn, 20), plain_ms=plain_ms, upload_ms=upload_ms,
+                   library_ms=None, pixels=H * W,
+                   **bound(H * W * 8, 0.0, f64_ops=H * W * 20))
+        report(f"K8 rectify_map {label} {W}x{H}", res, card)
+        log(f"K8 {label}: the host's maps {plain_ms:.2f} ms + their pageable upload "
+            f"{upload_ms:.2f} ms a view before K8, against K8's whole call "
+            f"{res['call_ms']:.4f} ms ({card})")
+        out[label] = res
+
+    args = scene_args("myself")
+    real = pipeline.rectify_map
+    with_k8 = pair_digests(pipeline.match_pair(*args, device="cuda"))
+    pipeline.rectify_map = lambda M, K, size, dev: tuple(
+        m.to(dev) for m in real(M, K, size, "cpu"))
+    try:
+        with_host = pair_digests(pipeline.match_pair(*args, device="cuda"))
+    finally:
+        pipeline.rectify_map = real
+    same = with_k8 == with_host
+    log(f"myself match_pair with K8's maps against the host's maps uploaded: "
+        f"digests equal={same}")
+    if not same:
+        raise AssertionError("match_pair with K8's maps differs from the host maps' pair")
+    return dict(out["dome"], myself=out["myself"], pair_equal_host_maps=same)
+
+
 def phase_dome(card: str) -> dict:
     """The 32-camera dome at its own size (`preset("dome32")`: 16 pairs,
     3840x2160, 5 levels, refine 30 + 30*level; `dome_preset_config`)
     through the production entry `reconstruct(mesh=...)` on one NCCL rank,
     by the dome tool's functions (`reconstruction_tpu_torch/tools/
-    demo_dome.py`): wall by stage, K1/K3/K2/K6/K7 launches, peak device memory,
+    demo_dome.py`): wall by stage, K8/K1/K3/K2/K6/K7 launches, peak device memory,
     cloud points, vertices and point-to-surface RMSE, held to the JAX
     tool's gates (finite vertices, more than 10,000, RMSE < 0.2).  Then
     pair (0, 1) through match_pair in float32 and with the bfloat16 cost
@@ -2642,7 +2732,7 @@ def phase_dome(card: str) -> dict:
                stats=rec.stats.records, comm=COMM.as_dict(),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     log(f"dome reconstruct(mesh=...), one NCCL rank: {wall:.2f} s wall ({card}); "
-        f"stage seconds {spans}; K1/K3/K2/K6/K7 launches {_launch_line(launches)}; collectives "
+        f"stage seconds {spans}; K8/K1/K3/K2/K6/K7 launches {_launch_line(launches)}; collectives "
         f"{out['comm']}; peak device "
         f"memory {out['peak_mem_gb']:.2f} GiB; fused cloud {summ['cloud_points']} points, "
         f"mesh {summ['verts']} vertices / {summ['faces']} faces, RMSE "
@@ -2678,7 +2768,7 @@ def phase_dome(card: str) -> dict:
                       drift=res.refine_drift.cpu().numpy().round(4).tolist())
         log(f"dome pair (0, 1) with a {dt} cost volume: {s:.2f} s wall, per-level ms "
             f"{[round(v, 1) for v in res.level_ms or ()]}, its own peak device memory "
-            f"{ab[dt]['peak_gb']:.3f} GiB, K1/K3/K2/K6/K7 launches {_launch_line(n)}, refine "
+            f"{ab[dt]['peak_gb']:.3f} GiB, K8/K1/K3/K2/K6/K7 launches {_launch_line(n)}, refine "
             f"drift p99 {ab[dt]['drift']}, cloud {ab[dt]['cloud']} ({card})")
         if not all(n.values()):
             raise AssertionError(f"the dome pair ({dt}) did not launch every kernel")
@@ -2963,7 +3053,8 @@ def main() -> int:
             "video": lambda: phase_video(card),
             "satellites": lambda: phase_satellites(card),
             "parallel": lambda: phase_parallel(card), "dome": lambda: phase_dome(card),
-            "bench": lambda: phase_bench(card), "scaling": lambda: phase_scaling(card)}
+            "bench": lambda: phase_bench(card), "scaling": lambda: phase_scaling(card),
+            "rectify_map": lambda: phase_rectify_map(card)}
     if sys.argv[1:]:
         for name in sys.argv[1:]:
             only[name]()
@@ -3004,6 +3095,8 @@ def main() -> int:
              replaces="reconstruction_tpu/stereo/constraints.py:78"),
         dict(name="propagate_bounds", route="cuda", source=src + "constraints.cu",
              replaces="reconstruction_tpu/stereo/constraints.py:334"),
+        dict(name="rectify_map", route="cuda", source=src + "rectify_map.cu",
+             replaces="reconstruction_tpu/core/remap.py:20 (host NumPy, no Pallas kernel)"),
     ]
     # Launches on each kernel's main path: the myself pair (K1, K3, K2, K6, K7), BA
     # (K4), the tensor-core sweep's entry point (K5), and the dome's pair

@@ -1,6 +1,6 @@
-"""Rectification remap: map computation (host, numpy) + bilinear sampling
-(torch, on the images' device).  Counterpart of
-`reconstruction_tpu/core/remap.py`."""
+"""Rectification remap: map computation (host, numpy; on the card K8,
+`ops/rectify_map`) + bilinear sampling (torch, on the images' device).
+Counterpart of `reconstruction_tpu/core/remap.py`."""
 
 from __future__ import annotations
 
@@ -12,6 +12,37 @@ import torch
 from reconstruction_tpu_torch.utils.fp import fma32
 
 
+def rectify_inverse(R_rect: np.ndarray, P_new: np.ndarray) -> np.ndarray:
+    """M_inv = (A' R)^{-1}, float64 (3, 3): rectified pixel -> ray in the
+    original camera, A' the left 3x3 block of ``P_new``."""
+    A = np.asarray(P_new, np.float64)[:, :3]
+    return np.linalg.inv(A @ np.asarray(R_rect, np.float64))
+
+
+def sampling_maps(M_inv: np.ndarray, K: np.ndarray,
+                  out_size: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """The per-pixel part of `rectify_map`, float64 elementwise in a fixed
+    order (K8, `csrc/rectify_map.cu`, repeats it operation for operation):
+
+        xyw_i = (M_inv[i,0]*u + M_inv[i,1]*v) + M_inv[i,2]
+        x, y  = xyw_0 / xyw_2, xyw_1 / xyw_2
+        map_x = (K[0,0]*x + K[0,1]*y) + K[0,2],  map_y = K[1,1]*y + K[1,2]
+
+    then rounded to float32.  The JAX package's `einsum` sums its terms in
+    this order (0 + a and m*1 are exact), so the bits agree with it."""
+    K = np.asarray(K, np.float64)
+    M = np.asarray(M_inv, np.float64)
+    w, h = out_size
+    u = np.arange(w, dtype=np.float64)[None, :]
+    v = np.arange(h, dtype=np.float64)[:, None]
+    xw, yw, ww = ((M[i, 0] * u + M[i, 1] * v) + M[i, 2] for i in range(3))
+    x = xw / ww
+    y = yw / ww
+    map_x = (K[0, 0] * x + K[0, 1] * y) + K[0, 2]
+    map_y = K[1, 1] * y + K[1, 2]
+    return map_x.astype(np.float32), map_y.astype(np.float32)
+
+
 def rectify_map(
     K: np.ndarray,
     R_rect: np.ndarray,
@@ -20,19 +51,7 @@ def rectify_map(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """dst->src sampling map for one camera: (map_x, map_y) float32 arrays
     of shape (height, width), source coordinates in the original image."""
-    K = np.asarray(K, np.float64)
-    A = np.asarray(P_new, np.float64)[:, :3]
-    M_inv = np.linalg.inv(A @ np.asarray(R_rect, np.float64))
-    w, h = out_size
-    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
-                       np.arange(h, dtype=np.float64))
-    ones = np.ones_like(u)
-    xyw = np.einsum("ij,jhw->ihw", M_inv, np.stack([u, v, ones]))
-    x = xyw[0] / xyw[2]
-    y = xyw[1] / xyw[2]
-    map_x = K[0, 0] * x + K[0, 1] * y + K[0, 2]
-    map_y = K[1, 1] * y + K[1, 2]
-    return map_x.astype(np.float32), map_y.astype(np.float32)
+    return sampling_maps(rectify_inverse(R_rect, P_new), K, out_size)
 
 
 def _lerp(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:

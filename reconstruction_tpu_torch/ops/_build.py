@@ -41,6 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 
 # C entry points: name -> argument types (pointers and the stream are void*).
 _SIGNATURES = {
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "rtt_ordering": [_P] * 6 + [_I] * 2 + [_P],
     "rtt_propagate_bounds": [_P] * 10 + [_F] + [_I] * 2 + [_P],
     "rtt_propagate_bounds_layout": [_I, _I, _P],
+    "rtt_rectify_map": [_P] * 2 + [_I] * 2 + [_D] * 14 + [_P],
 }
 
 

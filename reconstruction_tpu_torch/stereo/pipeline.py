@@ -26,7 +26,8 @@ from reconstruction_tpu_torch.config import NOMATCH, ReconstructionConfig
 from reconstruction_tpu_torch.core.morphology import erode_mask, valid_mask
 from reconstruction_tpu_torch.core.pyramid import build_pyramid, quantize_u8
 from reconstruction_tpu_torch.core.rectify import RectifyResult, rectify_pair
-from reconstruction_tpu_torch.core.remap import rectify_map, remap_bilinear
+from reconstruction_tpu_torch.core.remap import rectify_inverse, remap_bilinear
+from reconstruction_tpu_torch.ops.rectify_map import rectify_map
 from reconstruction_tpu_torch.stereo.constraints import (
     median_filter, ordering_constraint, propagate_bounds,
     smoothness_constraint, uniqueness_constraint)
@@ -191,17 +192,16 @@ def remap_pair_views(
     device: torch.device,
 ):
     """Remap both views to the rectified working grid on ``device``
-    (`CStereoMatching.cpp:140-158`).  Returns (images on the uint8 grid,
+    (`CStereoMatching.cpp:140-158`), their maps built there (K8 on a CUDA
+    device, `ops/rectify_map`).  Returns (images on the uint8 grid,
     eroded masks, pre-erosion masks), float32 tensors."""
     se = cfg.stereo.mask_erode_base * (1 << (cfg.pyramid_levels - 1))
     imgs, masks, raw_masks = [], [], []
     for img, msk, K, Rr, P in ((image0, mask0, K0, rect.R1, rect.P1_scaled),
                                (image1, mask1, K1, rect.R2, rect.P2_scaled)):
         with span("rectify_map"):
-            mx, my = rectify_map(K, Rr, P, working)
+            mx, my = rectify_map(rectify_inverse(Rr, P), K, working, device)
         with span("upload"):
-            mx = torch.from_numpy(mx).to(device)
-            my = torch.from_numpy(my).to(device)
             img_d = torch.from_numpy(np.asarray(img, np.float32)).to(device)
             msk_d = torch.from_numpy(np.asarray(msk, np.float32)).to(device)
         with span("remap"):

@@ -40,6 +40,51 @@ def test_rectify_copy_and_map_exact(rng):
     assert_equal(ref.Q, conv.Q, "from_jax_state(RectifyResult)")
 
 
+@pytest.mark.parametrize("skew", [0.0, 3.7], ids=["plain_K", "skewed_K"])
+@pytest.mark.parametrize("size", [(1280, 1920), (3840, 2160), (61, 47)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_rectify_map_plain_bit_equal_to_jax(skew, size):
+    """The port's rectify_map (explicit float64 elementwise operations,
+    the order K8 repeats on the card) against the JAX package's einsum, bit
+    for bit (the float32 maps' uint32 views, so NaN and inf too), both views
+    of a rectified pair at the working sizes and a ragged one; one rig with
+    a skewed K (K01 != 0)."""
+    cams = jcam.synthetic_rig(2, span_deg=11.0, image_size=size)
+    K0 = np.asarray(cams[0].K, np.float64).copy()
+    K0[0, 1] = skew
+    K1 = np.asarray(cams[1].K, np.float64)
+    rect = t_rectify_pair(K0, np.asarray(cams[0].Rt, np.float64), K1,
+                          np.asarray(cams[1].Rt, np.float64), size, size)
+    for view, (K, R, P) in enumerate(((K0, rect.R1, rect.P1_scaled),
+                                      (K1, rect.R2, rect.P2_scaled))):
+        ref = jremap.rectify_map(K, R, P, size)
+        got = tremap.rectify_map(K, R, P, size)
+        for name, a, b in zip(("map_x", "map_y"), ref, got):
+            assert a.shape == (size[1], size[0]) and a.dtype == b.dtype == np.float32
+            assert_equal(a.view(np.uint32), b.view(np.uint32), f"view {view} {name}")
+
+
+def test_rectify_map_wrapper_on_the_cpu():
+    """K8's wrapper on the CPU: the plain version's arrays as tensors, no
+    launch; another device than the CPU or CUDA raises."""
+    from reconstruction_tpu_torch.ops import rectify_map as K8
+    cams = tcam.synthetic_rig(2, span_deg=11.0, image_size=(61, 47))
+    rect = t_rectify_pair(cams[0].K, cams[0].Rt, cams[1].K, cams[1].Rt,
+                          (61, 47), (61, 47))
+    M = tremap.rectify_inverse(rect.R1, rect.P1_scaled)
+    n0 = K8.rectify_map.launches
+    got = K8.rectify_map(M, cams[0].K, (61, 47), "cpu")
+    ref = tremap.rectify_map(cams[0].K, rect.R1, rect.P1_scaled, (61, 47))
+    for a, b in zip(ref, got):
+        assert b.device.type == "cpu"
+        assert_equal(a.view(np.uint32), b.numpy().view(np.uint32), "K8 wrapper, CPU")
+    assert K8.rectify_map.launches == n0
+    with pytest.raises(RuntimeError, match="no kernel"):
+        K8.rectify_map(M, cams[0].K, (61, 47), "meta")
+    with pytest.raises(ValueError):
+        K8.rectify_map(M[:2], cams[0].K, (61, 47), "cpu")
+
+
 @pytest.mark.parametrize("channels", [3, 1])
 def test_remap_bilinear_exact(rng, channels):
     shape = (50, 60, channels) if channels > 1 else (50, 60)

@@ -1,6 +1,6 @@
 """Kernels K1 (sweep), K3 (cost volume, slot-major), K2 (refine sweeps, T a
-launch), K4 (BA coupling) and K5 (tensor-core sweep) against their plain
-PyTorch versions on the card.  CUDA only: skipped on a machine
+launch), K4 (BA coupling), K5 (tensor-core sweep) and K8 (rectify maps)
+against their plain versions on the card.  CUDA only: skipped on a machine
 without a GPU (there is no interpret mode for a CUDA kernel).  On the
 card (whose machine has no jax for tests/conftest.py):
 python -m pytest --noconftest tests/test_torch_kernels.py -q"""
@@ -359,3 +359,97 @@ def test_ncc_moments_card_equal_cpu(dev):
         gpu = ncc_moments(_centered(torch.from_numpy(img).to(dev)), radius)
         assert torch.equal(cpu.mean, gpu.mean.cpu())
         assert torch.equal(cpu.inv_norm, gpu.inv_norm.cpu())
+
+
+# K8: the rectify maps.  Rigs: the port's synthetic pair with K as built and
+# with a skewed K (K01 != 0), and an M_inv whose xyw_2 = 1e-3 * (u - v)
+# crosses zero inside the image (0 on the diagonal: inf and NaN there).
+K8_SIZES = [(1280, 1920), (3840, 2160), (61, 47)]
+
+
+def _k8_rig(rig, size):
+    """(M_inv, K) of the first view of ``rig`` at ``size`` (width, height)."""
+    from reconstruction_tpu_torch.core.camera import synthetic_rig
+    from reconstruction_tpu_torch.core.rectify import rectify_pair
+    from reconstruction_tpu_torch.core.remap import rectify_inverse
+    cams = synthetic_rig(2, span_deg=11.0, image_size=size)
+    K0 = np.asarray(cams[0].K, np.float64).copy()
+    if rig == "crossing":
+        M = np.array([[1e-3, 2e-4, -0.6], [1e-4, 1e-3, -0.5], [1e-3, -1e-3, 0.0]])
+        return M, K0
+    if rig == "skewed":
+        K0[0, 1] = 3.7
+    rect = rectify_pair(K0, cams[0].Rt, cams[1].K, cams[1].Rt, size, size)
+    return rectify_inverse(rect.R1, rect.P1_scaled), K0
+
+
+def _assert_bits_equal(ref: np.ndarray, got: np.ndarray, what: str) -> None:
+    """float32 arrays equal bit for bit, NaN compared by position."""
+    assert ref.shape == got.shape and ref.dtype == got.dtype == np.float32, what
+    nan = np.isnan(ref)
+    assert np.array_equal(nan, np.isnan(got)), f"{what}: NaN positions differ"
+    bad = ref.view(np.uint32)[~nan] != got.view(np.uint32)[~nan]
+    assert not bad.any(), f"{what}: {int(bad.sum())} of {bad.size} differ"
+
+
+@pytest.mark.parametrize("size", K8_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("rig", ["pair", "skewed", "crossing"])
+def test_k8_rectify_map_equals_plain(dev, rig, size):
+    """K8's float32 maps bit-equal to the plain float64 NumPy version's."""
+    from reconstruction_tpu_torch.core.remap import sampling_maps
+    from reconstruction_tpu_torch.ops import rectify_map as K8
+    M, K = _k8_rig(rig, size)
+    n0 = K8.rectify_map.launches
+    got = K8.rectify_map(M, K, size, dev)
+    torch.cuda.synchronize()
+    assert K8.rectify_map.launches == n0 + 1
+    with np.errstate(divide="ignore", invalid="ignore"):   # the crossing rig
+        ref = sampling_maps(M, K, size)
+    for name, a, b in zip(("map_x", "map_y"), ref, got):
+        assert b.device.type == "cuda" and b.is_contiguous()
+        _assert_bits_equal(a, b.cpu().numpy(), f"{rig} {size} {name}")
+    if rig == "crossing":   # the case is there: both signs and the zero
+        ww = 1e-3 * np.arange(size[0])[None, :] - 1e-3 * np.arange(size[1])[:, None]
+        assert (ww > 0).any() and (ww < 0).any()
+        assert not np.isfinite(ref[1]).all()
+
+
+@pytest.fixture(scope="module")
+def tiny_pair():
+    from reconstruction_tpu_torch.config import preset
+    from reconstruction_tpu_torch.utils.synthetic import make_stereo_scene
+    cams, imgs, masks = make_stereo_scene(image_size=(160, 120), span_deg=24.0)
+    return (preset("tiny"), imgs[0], imgs[1], masks[0], masks[1], cams[0].K, cams[0].Rt,
+            cams[1].K, cams[1].Rt)
+
+
+def test_k8_launches_two_a_cuda_pair_none_a_cpu_pair(dev, tiny_pair):
+    """match_pair builds both views' maps with K8 on the card (2 launches)
+    and with the plain version on the CPU (none)."""
+    from reconstruction_tpu_torch.ops import rectify_map as K8
+    from reconstruction_tpu_torch.stereo.pipeline import match_pair
+    n0 = K8.rectify_map.launches
+    match_pair(*tiny_pair, device=dev)
+    torch.cuda.synchronize()
+    assert K8.rectify_map.launches == n0 + 2
+    match_pair(*tiny_pair, device="cpu")
+    assert K8.rectify_map.launches == n0 + 2
+
+
+def test_k8_pair_equals_host_maps(dev, tiny_pair, monkeypatch):
+    """A card match_pair with K8's maps equals, bit for bit, one whose maps
+    are the plain version's, built on the host and uploaded as before K8
+    (the pair's disparity, cloud, rectified views and masks)."""
+    from reconstruction_tpu_torch.ops import rectify_map as K8
+    from reconstruction_tpu_torch.stereo import pipeline
+    from reconstruction_tpu_torch.tools.pair_stages import pair_digests
+    with_k8 = pair_digests(pipeline.match_pair(*tiny_pair, device=dev))
+
+    def host_maps(M_inv, K, size, device):
+        return tuple(m.to(device) for m in K8.rectify_map(M_inv, K, size, "cpu"))
+
+    monkeypatch.setattr(pipeline, "rectify_map", host_maps)
+    n0 = K8.rectify_map.launches
+    with_host = pair_digests(pipeline.match_pair(*tiny_pair, device=dev))
+    assert K8.rectify_map.launches == n0
+    assert with_k8 == with_host
