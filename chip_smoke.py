@@ -113,7 +113,10 @@ Phases (any failure raises; the exit code is then non-zero):
 
 Named phases run alone (no kernels line, no result): kernels, slice, small,
 mxu, ba, front, reconstruct, cli, video, satellites, parallel, dome, bench,
-scaling, rectify_map.
+scaling, rectify_map.  On a host with four cards: parallel_nccl (the
+parallel phase with (b)'s four ranks on NCCL, rank r on cuda:r) and
+dome_sharded (one dome take through `reconstruct(mesh=...)` over four NCCL
+ranks, its mesh against the one-card take's).
 
 Full logs go to chiprun_out/chip_smoke.json.
 """
@@ -1811,7 +1814,7 @@ def parallel_rank(cfg, views, masks_u8, cams_K, cams_Rt, refine_in, splat_box) -
     return out
 
 
-def phase_parallel(card: str, seq=None, scene=None) -> dict:
+def phase_parallel(card: str, seq=None, scene=None, backend: str = "gloo") -> dict:
     """The multi-device layer (`parallel/`) on the card, at the bench
     configuration (``scene`` and ``seq``: `phase_reconstruct`'s views and
     its sequential run of them; made here when the phase runs alone).
@@ -1822,7 +1825,8 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
         `disparity_refine(recenter_every=0)`, `poisson_vcycle_sharded` at
         256^3 (levels 3, cycles 8) equal to the dense `_vcycle`, all bit
         for bit.
-    (b) Four gloo ranks on cuda:0 (`parallel_rank`): the pairs bit-equal to
+    (b) Four gloo ranks on cuda:0 (`parallel_rank`; ``backend`` "nccl":
+        four NCCL ranks, rank r on cuda:r): the pairs bit-equal to
         the sequential `match_pair`s, with K1/K3/K2 launched on every rank;
         the tile refine bit-equal; BA within the JAX package's criteria
         with K4 on every rank; the splat within 1e-4 and the multigrid
@@ -1945,7 +1949,7 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
     finally:
         dist.destroy_process_group()
 
-    # (b) four gloo ranks on cuda:0
+    # (b) four ranks: gloo on cuda:0, or NCCL on cuda:0-3
     clouds = [r.cloud for r in seq.pair_results]
     allv = torch.cat([c.valid for c in clouds])
     allx = torch.cat([c.xyz for c in clouds])
@@ -1961,12 +1965,12 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
     (ranks, world_s) = timed(lambda: run_local(
         chip_smoke.parallel_rank, PARALLEL_RANKS, "cuda", cfg, views_u8, masks_u8,
         [np.asarray(c.K) for c in cams], [np.asarray(c.Rt) for c in cams], refine_in, box,
-        backend="gloo", timeout=900))
+        backend=backend, timeout=900))
     for r in ranks:
         log(f"parallel (b) rank {r['rank']} on {r['device']} ({r['backend']}): probe "
             f"{r['probe']}")
     if any(v != "ok" for r in ranks for v in r["probe"].values()):
-        raise AssertionError("a collective refused CUDA tensors on gloo")
+        raise AssertionError(f"a collective refused CUDA tensors on {backend}")
     want = [pair_digests(r) for r in seq.pair_results]
     pairs_eq = all(r["pairs"] == want for r in ranks)
     refine_eq = all(r["refine"] == digest(ref_refine) for r in ranks)
@@ -2060,7 +2064,8 @@ def phase_parallel(card: str, seq=None, scene=None) -> dict:
         f"{zk['four_rank_max_err_over_bound']:.3g} of the bound; the one-device splat of all "
         f"{zk['one_device_points']} points equal to that of the weighted ones "
         f"{zk['one_device_equal']} (max |diff| {zk['one_device_max_diff']:.3g})")
-    log(f"parallel (b) four gloo ranks on one card, {world_s:.1f} s for the world: pairs "
+    log(f"parallel (b) four {backend} ranks on {sorted({r['device'] for r in ranks})}, "
+        f"{world_s:.1f} s for the world: pairs "
         f"bit-equal to match_pair on every rank {pairs_eq}; refine_tiled (tile 4) bit-equal "
         f"{refine_eq}; BA {ba_ok}; multigrid max |err| {chi_err:.3g} (<= 1e-6); every rank "
         f"the same BA/splat/chi {same_ba}/{same_splat}/{same_chi}; K1/K3/K2 on every rank "
@@ -2339,6 +2344,89 @@ def phase_satellites(card: str) -> dict:
     if n != 4:
         raise AssertionError("cut_image_dir did not write its 4 masks")
     return out
+
+
+def dome_take_rank(cfg) -> dict:
+    """One of the ranks of `phase_dome_sharded`: render the dome, run
+    `reconstruct(mesh=...)` over the world, return the summary, the stage
+    seconds and stats, the peak device memory, digests of the mesh and, on
+    rank 0, the mesh itself."""
+    import torch
+    import torch.distributed as dist
+    from reconstruction_tpu_torch.parallel.mesh import COMM
+    from reconstruction_tpu_torch.tools import demo_dome
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (_, pairs), render_s = timed(lambda: demo_dome.dome_pairs(cfg, "cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    COMM.reset()
+    rec, wall = demo_dome.reconstruct_sharded(cfg, pairs, "cuda")
+    out = dict(rank=dist.get_rank(), device=str(torch.device("cuda", torch.cuda.current_device())),
+               render_s=render_s, summary=demo_dome.summary(cfg, rec, wall, dist.get_world_size()),
+               spans={k: round(v, 4) for k, v in rec.timer.spans.items()},
+               stats=[r for r in rec.stats.records if r["stage"] == "stereo_sharded"],
+               comm=COMM.as_dict(), peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+               digests={k: digest(getattr(rec, k)) for k in ("vertices", "faces", "colors")},
+               pairs=[pair_digests(r) for r in rec.pair_results],
+               cloud=digest(rec.cloud_xyz), threads=torch.get_num_threads())
+    if out["rank"] == 0:
+        out["mesh"] = {k: np.asarray(getattr(rec, k)) for k in ("vertices", "faces", "colors")}
+    return out
+
+
+def phase_dome_sharded(card: str) -> dict:
+    """One dome take (`dome_preset_config`) through `reconstruct` on one
+    card in this process, then through `reconstruct(mesh=...)` over four
+    NCCL ranks on cuda:0-3 (`dome_take_rank`, each rank rendering the dome
+    itself): the take's wall on each, the stereo stage's local and gather
+    seconds, and every rank's mesh (vertices, faces, colours) equal to the
+    one-card take's, bit for bit."""
+    import gc
+
+    import torch
+    import chip_smoke
+    from reconstruction_tpu_torch.parallel.launch import run_local
+    from reconstruction_tpu_torch.pipeline.reconstruct import reconstruct
+    from reconstruction_tpu_torch.tools import demo_dome
+
+    cfg = dome_preset_config()
+    # The ranks' intra-op threads (`run_local`), so that the tail's CPU
+    # reductions split alike on both sides.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // 8))
+    (_, pairs), render_s = timed(lambda: demo_dome.dome_pairs(cfg, "cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    one, one_s = timed(lambda: reconstruct(cfg, pairs, device="cuda"))
+    mesh1 = {k: np.asarray(getattr(one, k)) for k in ("vertices", "faces", "colors")}
+    pairs1, cloud1 = [pair_digests(r) for r in one.pair_results], digest(one.cloud_xyz)
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"dome take on one card: {one_s:.2f} s wall (render {render_s:.2f} s; {card}); "
+        f"{len(mesh1['vertices'])} vertices, {len(mesh1['faces'])} faces; peak {one_peak:.2f} "
+        f"GiB; stages {[(k, round(v, 2)) for k, v in one.timer.spans.items() if '/' not in k]}")
+    del one, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, world_s = timed(lambda: run_local(chip_smoke.dome_take_rank, 4, "cuda", cfg,
+                                             timeout=1500))
+    same_ranks = len({tuple(sorted(r["digests"].items())) for r in ranks}) == 1
+    equal = all(np.array_equal(ranks[0]["mesh"][k], mesh1[k]) for k in mesh1)
+    log(f"dome take over 4 NCCL ranks against one card ({torch.get_num_threads()} and "
+        f"{ranks[0]['threads']} torch threads): pairs equal "
+        f"{[r['pairs'] == pairs1 for r in ranks]}, fused cloud equal "
+        f"{[r['cloud'] == cloud1 for r in ranks]}, vertices {len(ranks[0]['mesh']['vertices'])} "
+        f"against {len(mesh1['vertices'])}")
+    for r in ranks:
+        log(f"dome take over 4 NCCL ranks, rank {r['rank']} on {r['device']}: "
+            f"{r['summary']['wall_s']} s wall (render {r['render_s']:.2f} s), stereo_sharded "
+            f"{r['stats']}, collectives {r['comm']}, peak {r['peak_mem_gb']:.2f} GiB")
+    log(f"dome take over 4 NCCL ranks: {world_s:.1f} s for the world; rank 0's stages "
+        f"{ranks[0]['summary']['stages_s']}; every rank the same mesh {same_ranks}; equal to "
+        f"the one-card take's (vertices, faces, colours) {equal}; one card {one_s:.2f} s")
+    if not (same_ranks and equal):
+        raise AssertionError("the four-rank dome take's mesh differs from the one-card take's")
+    return dict(one_card_s=one_s, one_card_peak_gb=one_peak, world_s=world_s,
+                ranks=[{k: v for k, v in r.items() if k != "mesh"} for r in ranks],
+                same_ranks=same_ranks, equal=equal)
 
 
 def dome_preset_config():
@@ -3053,6 +3141,8 @@ def main() -> int:
             "video": lambda: phase_video(card),
             "satellites": lambda: phase_satellites(card),
             "parallel": lambda: phase_parallel(card), "dome": lambda: phase_dome(card),
+            "parallel_nccl": lambda: phase_parallel(card, backend="nccl"),
+            "dome_sharded": lambda: phase_dome_sharded(card),
             "bench": lambda: phase_bench(card), "scaling": lambda: phase_scaling(card),
             "rectify_map": lambda: phase_rectify_map(card)}
     if sys.argv[1:]:

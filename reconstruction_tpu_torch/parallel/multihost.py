@@ -10,6 +10,7 @@ host (halo exchange and cloud fusion collectives).
 
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 from typing import Optional
@@ -36,6 +37,7 @@ def initialize_distributed(
     process_id: Optional[int] = None,
     device="cuda",
     backend: Optional[str] = None,
+    timeout: Optional[float] = None,
 ) -> torch.device:
     """Join the process group and bind this rank's device; returns it.
 
@@ -45,8 +47,10 @@ def initialize_distributed(
     none of them, a world of one on a free localhost port.  The backend is
     NCCL for "cuda" and gloo for "cpu" unless given: gloo on "cuda" runs
     several ranks on one card.  Rank r takes cuda:(LOCAL_RANK % device
-    count); NCCL refuses two ranks on one card, so this raises first.  A
-    process that already joined keeps its group."""
+    count); NCCL refuses two ranks on one card, so this raises first.
+    ``timeout``: seconds a collective or the join may wait for the other
+    ranks before it fails (torch's default if None).  A process that
+    already joined keeps its group."""
     dev_type = torch.device(device).type
     backend = backend or ("nccl" if dev_type == "cuda" else "gloo")
     coordinator_address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
@@ -77,7 +81,8 @@ def initialize_distributed(
         dev = torch.device(dev_type)
     if dist.is_initialized():
         return dev
-    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    extra = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank, **extra)
     log.info("distributed: rank %d/%d on %s (%s)", rank, world, dev, backend)
     return dev
 

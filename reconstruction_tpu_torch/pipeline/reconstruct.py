@@ -215,8 +215,7 @@ def reconstruct(
     sharded: Dict[int, PairResult] = {}
     if mesh is not None and pairs:
         from reconstruction_tpu_torch.parallel.mesh import broadcast_objects
-        from reconstruction_tpu_torch.parallel.production import (
-            match_pairs_sharded, move_result)
+        from reconstruction_tpu_torch.parallel.production import match_pairs_sharded
         todo = [pi for pi in range(len(pairs))
                 if not (store and store.has("pair_cloud", pi))]
         todo = broadcast_objects([todo])[0]      # rank 0's checkpoints decide
@@ -224,7 +223,7 @@ def reconstruct(
             split = Timer(dev)
             with timer.span("stereo_sharded"):
                 rs = match_pairs_sharded(cfg, [pairs[pi] for pi in todo], mesh, timer=split)
-                sharded = {pi: move_result(r, dev) for pi, r in zip(todo, rs)}
+                sharded = dict(zip(todo, rs))
             stats.add("stereo_sharded", pairs=len(todo),
                       **{f"{k}_s": round(v, 4) for k, v in split.spans.items()})
     for pi, pin in enumerate(pairs):

@@ -12,6 +12,7 @@ both sides.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -142,3 +143,82 @@ def default_device_error(cfg, pairs) -> str:
 
 def rank_and_world() -> tuple:
     return dist.get_rank(), dist.get_world_size()
+
+
+@dataclasses.dataclass
+class Odd:
+    """A result whose shapes differ by rank and by item, for
+    `gather_results`: tensors of five dtypes, a 0-d one and an empty one,
+    nested in a tuple and a list, beside host values."""
+
+    a: torch.Tensor
+    b: tuple
+    c: torch.Tensor
+    d: torch.Tensor
+    e: list
+    host: dict
+
+
+def odd_result(rank: int, i: int) -> Odd:
+    g = torch.Generator().manual_seed(100 * rank + i)
+    return Odd(a=torch.randn((rank + 1, i + 2), generator=g),
+               b=(torch.rand((i + 1,), generator=g) < 0.5,
+                  torch.randint(0, 256, (3, rank + 1), generator=g, dtype=torch.uint8)),
+               c=torch.tensor(7 * rank + i, dtype=torch.int32),
+               d=torch.zeros((0, rank), dtype=torch.float64),
+               e=[0.5 * i, torch.arange(rank + i + 1, dtype=torch.int64)],
+               host={"rank": rank, "i": i})
+
+
+def tensors_of(obj) -> list:
+    """Every tensor in a result, in field order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in tensors_of(v)]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj) for t in tensors_of(getattr(obj, f.name))]
+    return []
+
+
+def arrays_of(obj):
+    """A result as nested host values: each tensor a numpy array."""
+    if isinstance(obj, torch.Tensor):
+        return _np(obj)
+    if isinstance(obj, (tuple, list)):
+        return [arrays_of(v) for v in obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: arrays_of(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    return obj
+
+
+def gather(cfg, pairs) -> dict:
+    """`match_pairs_sharded` over the pair axis of the whole world, then
+    again on no pair under a CPU profiler session (its spans), then
+    `gather_results` of `Odd` results (rank r sends r + 1 of them), with
+    the calls and bytes `COMM` counted for the first call and the last."""
+    from reconstruction_tpu_torch.parallel.mesh import COMM, mesh_device
+    from reconstruction_tpu_torch.parallel.production import gather_results, match_pairs_sharded
+    from reconstruction_tpu_torch.utils.timing import Timer, span_mark, span_records
+
+    torch.set_num_threads(THREADS)
+    mesh = make_mesh(frame=1, tile=1, device="cpu")
+    dev = mesh_device(mesh)
+    rank = dist.get_rank()
+    timer = Timer(dev)
+    COMM.reset()
+    rs = match_pairs_sharded(cfg, pairs, mesh, timer=timer)
+    out = dict(rank=rank, device=str(dev), pairs=[arrays_of(r) for r in rs],
+               devices=sorted({str(t.device) for r in rs for t in tensors_of(r)}),
+               timer=sorted(timer.spans), comm=COMM.as_dict())
+    mark = span_mark()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        match_pairs_sharded(cfg, pairs[:0], mesh)
+    out["spans"] = sorted({(s.name, s.parent) for s in span_records(mark)}, key=str)
+    COMM.reset()
+    got = gather_results([odd_result(rank, i) for i in range(rank + 1)],
+                         mesh.get_group("pair"), dev)
+    out.update(odd=[arrays_of(r) for r in got], odd_types=[type(r).__name__ for r in got],
+               odd_devices=sorted({str(t.device) for r in got for t in tensors_of(r)}),
+               odd_comm=COMM.as_dict())
+    return out
