@@ -44,7 +44,13 @@ Phases (any failure raises; the exit code is then non-zero):
      working sizes (1280x1920, 3840x2160), both views, bit-equal to the
      plain float64 NumPy maps, timed beside their byte bound with the host
      maps' time and upload, and a `myself` match_pair with K8's maps
-     against one with the host's maps (`phase_rectify_map`)
+     against one with the host's maps (`phase_rectify_map`); K9 pyramid
+     steps at every level input of the `myself` and dome pyramids, a view
+     and a mask each, bit-equal to the plain pyr_down, the finest view's
+     step timed beside its byte bound, a pair's four pyramids by K9 and by
+     the plain version (launches, time), and a `myself` match_pair's K9
+     launches and digests against one with the plain pyramids
+     (`phase_pyramid`)
   4. match_pair on a rendered 1280x1920 two-view scene, preset "myself",
      twice, with the kernels' launch counts, per-level times, cloud
      metrics and determinism, its seconds by stage (the card synchronized
@@ -113,7 +119,7 @@ Phases (any failure raises; the exit code is then non-zero):
 
 Named phases run alone (no kernels line, no result): kernels, slice, small,
 mxu, ba, front, reconstruct, cli, video, satellites, parallel, dome, bench,
-scaling, rectify_map.  On a host with four cards: parallel_nccl (the
+scaling, rectify_map, pyramid.  On a host with four cards: parallel_nccl (the
 parallel phase with (b)'s four ranks on NCCL, rank r on cuda:r) and
 dome_sharded (one dome take through `reconstruct(mesh=...)` over four NCCL
 ranks, its mesh against the one-card take's).
@@ -729,11 +735,12 @@ def phase_kernels(card: str) -> dict:
     # K6 and K7 on the inputs the myself pair gives them at its finest level.
     results.update(phase_constraints(card))
     results["rectify_map"] = phase_rectify_map(card)
+    results["pyr_down"] = phase_pyramid(card)
     return results
 
 
 # Substrings of the port's kernel names, as the profiler reports them.
-PORT_KERNELS = {"rectify_map": "rectify_map_kernel",
+PORT_KERNELS = {"rectify_map": "rectify_map_kernel", "pyr_down": "pyr_down_kernel",
                 "ncc_sweep": "ncc_sweep_kernel", "cost_volume": "cost_volume_kernel",
                 "refine": "refine_sweep", "ba_coupling": "ba_coupling_kernel",
                 "ncc_sweep_mxu": "ncc_sweep_mxu", "ordering": "ordering_constraint_kernel",
@@ -1132,19 +1139,21 @@ def phase_front_end(card: str) -> dict:
 
 def counted(fn, bf16: bool = False):
     """(result, seconds, launches by kernel) of ``fn()``: the pair path's
-    kernel counts (K8's, K1's, K3's and K2's by C entry, K6's and K7's) set to 0
+    kernel counts (K8's, K9's, K1's, K3's and K2's by C entry, K6's and K7's) set to 0
     just before it and read just after, for K3 and K2 in the volume type of the path
     (float32, or bfloat16 with ``bf16``, named with a "_bf16" suffix).
     Raises if ``fn`` launched K3 or K2 in the other type."""
     import torch
     from reconstruction_tpu_torch.ops import constraints as K67
     from reconstruction_tpu_torch.ops import ncc_sweep as K13
+    from reconstruction_tpu_torch.ops import pyramid as K9
     from reconstruction_tpu_torch.ops import rectify_map as K8
     from reconstruction_tpu_torch.ops import refine as K2
     dt = torch.bfloat16 if bf16 else torch.float32
     keyed = {"cost_volume": (K13.cost_volume, K13.VOLUME_ENTRIES[dt]),
              "refine_sweeps_fused": (K2.refine_sweeps_fused, K2.SWEEP_ENTRIES[dt])}
     K8.rectify_map.launches = 0
+    K9.pyr_down.launches = 0
     K13.ncc_sweep.launches = 0
     K67.ordering.launches = 0
     K67.propagate_bounds.launches = 0
@@ -1157,6 +1166,7 @@ def counted(fn, bf16: bool = False):
                              f"{other}")
     sfx = "_bf16" if bf16 else ""
     return out, seconds, dict(rectify_map=K8.rectify_map.launches,
+                              pyr_down=K9.pyr_down.launches,
                               ncc_sweep=K13.ncc_sweep.launches,
                               **{name + sfx: w.launches[entry]
                                  for name, (w, entry) in keyed.items()},
@@ -1226,7 +1236,7 @@ def phase_reconstruct(card: str) -> dict:
     the myself preset at 1280x1920, 8 cameras on a 42-degree arc rendered
     on the card (quantized as the bench stores them), pairs (0,1), (2,3),
     (4,5), (7,6), mls_radius 0.02, a 256^3 Poisson grid, no dedup.  Two
-    runs: stage seconds, K8/K1/K3/K2/K6/K7 launches, mesh against the scene's
+    runs: stage seconds, K8/K9/K1/K3/K2/K6/K7 launches, mesh against the scene's
     surface and against the reference's vertex count, runs identical.
     A third run with the bfloat16 cost window (refine_cv_dtype), held to
     the same gates.  Then SOR and normals on one pair's raw cloud and MLS
@@ -1299,7 +1309,7 @@ def phase_reconstruct(card: str) -> dict:
     log(f"reconstruct bfloat16 cost window: {wall_b:.2f} s wall ({card}); fused cloud "
         f"{bf['cloud_points']} points, mesh {bf['verts']} vertices / {bf['faces']} faces "
         f"({bf['vert_ratio']:.3f}x of {REF_MESH_VERTS}), RMSE {bf['rmse']:.6f} (float32 "
-        f"{run['rmse']:.6f}), peak {bf['peak_mem_gb']:.2f} GiB, K8/K1/K3/K2/K6/K7 launches "
+        f"{run['rmse']:.6f}), peak {bf['peak_mem_gb']:.2f} GiB, K8/K9/K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches_b)}; stage seconds {bf['spans']}")
     if not (bf["rmse"] <= RMSE_LIMIT and 0.8 <= bf["vert_ratio"] <= 1.25
             and np.isfinite(rec_b.vertices).all() and all(launches_b.values())):
@@ -1381,7 +1391,7 @@ def write_calib(root: str, cams) -> None:
 
 
 def _launch_line(launches: dict) -> str:
-    """K8/K1/K3/K2/K6/K7 launches of a `counted` run."""
+    """K8/K9/K1/K3/K2/K6/K7 launches of a `counted` run."""
     return "/".join(str(n) for n in launches.values())
 
 
@@ -1517,7 +1527,7 @@ def phase_cli(card: str) -> dict:
         f"({len(cli_bytes)} and {len(own_bytes)} bytes); mesh {len(rec.vertices)} "
         f"vertices / {len(rec.faces)} faces, "
         f"interior RMSE {rmse:.6f} (recorded: the myself preset's mls_radius 2.5 is "
-        f"not the bench's), in-process {own_s:.2f} s wall, K8/K1/K3/K2/K6/K7 launches "
+        f"not the bench's), in-process {own_s:.2f} s wall, K8/K9/K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches)} ({card}); stage seconds {spans}")
     for name, n in launches.items():
         if n <= 0:
@@ -2170,7 +2180,7 @@ def phase_video(card: str) -> dict:
     verts = [int(len(r.mesh_vertices)) for r in results]
     log(f"video: 4 frames x 6 views {size[0]}x{size[1]}, {wall:.2f} s wall (render "
         f"{sum(render_s):.2f} s of it), per-frame reconstruct seconds "
-        f"{[round(s, 3) for s in frame_s]} ({card}); K8/K1/K3/K2/K6/K7 launches "
+        f"{[round(s, 3) for s in frame_s]} ({card}); K8/K9/K1/K3/K2/K6/K7 launches "
         f"{_launch_line(launches)}")
     log(f"video: mesh vertices {verts}, RMSE {[round(v, 6) for v in rmse]}; rig angle "
         f"error (degrees) with closures {[round(e, 4) for e in err]}, chain without "
@@ -2323,7 +2333,7 @@ def phase_satellites(card: str) -> dict:
                         launches=launches, verts=meshes, configs_equal=configs_equal)
     log(f"run_batch: 1 take x 2 expressions, 10 views {size[0]}x{size[1]} (JPEG, "
         f"written in {write_s:.2f} s): {batch_s:.2f} s wall ({card}), meshes {meshes} vertices, "
-        f"config_1/2.yml equal to generate_take_config={configs_equal}, K8/K1/K3/K2/K6/K7 "
+        f"config_1/2.yml equal to generate_take_config={configs_equal}, K8/K9/K1/K3/K2/K6/K7 "
         f"launches {_launch_line(launches)}")
     if not (configs_equal and min(meshes) > 0 and min(launches.values()) > 0):
         raise AssertionError("run_batch outside its gates")
@@ -2779,12 +2789,121 @@ def phase_rectify_map(card: str) -> dict:
     return dict(out["dome"], myself=out["myself"], pair_equal_host_maps=same)
 
 
+def plain_build_pyramid(img, levels: int, quantize: bool = False):
+    """The pyramid as the pair path built it before K9: the plain
+    `core/pyramid.build_pyramid` (float64 fma32 taps), then `quantize_u8`."""
+    from reconstruction_tpu_torch.core import pyramid as plain
+    pyr = plain.build_pyramid(img, levels)
+    return [plain.quantize_u8(p) for p in pyr] if quantize else pyr
+
+
+def phase_pyramid(card: str) -> dict:
+    """K9 at every level input of the `myself` (1920x1280 down to 480x320,
+    H x W) and dome (2160x3840 down to 270x480) pyramids, for a view (3
+    channels, on the uint8 grid) and a mask (2-D, off it): each step once
+    under `without_sync`, bit-equal to the plain pyr_down (its float64
+    fma32 taps, on the card).  Then the finest view's step timed beside its
+    bound (the input read once and a quarter of it written; 9 float32
+    operations a blurred value) with the plain step's time; a pair's four
+    pyramids (two views, two masks with their rounded levels) by K9 and by
+    the plain version: bit-equal, K9's launches, and the device time of
+    each (CUDA events around the four).  Last, a full `myself` match_pair:
+    K9's launches, and its digests against a pair whose pyramids are the
+    plain version's.  Returns the dome's numbers, the myself ones under
+    "myself"."""
+    import torch
+    from reconstruction_tpu_torch.config import preset
+    from reconstruction_tpu_torch.core import pyramid as plain
+    from reconstruction_tpu_torch.ops import pyramid as K9
+    from reconstruction_tpu_torch.stereo import pipeline
+    from reconstruction_tpu_torch.tools.pair_stages import scene_args
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for label, name in (("myself", "myself"), ("dome", "dome32")):
+        cfg = preset(name)
+        W, H = cfg.finest_size
+        L = cfg.pyramid_levels
+        view = torch.randint(0, 256, (H, W, 3), generator=gen, device="cuda").float()
+        mask = torch.rand((H, W), generator=gen, device="cuda") * 255.0
+        for x in (view, mask):
+            cur = x
+            for _ in range(L - 1):
+                got = without_sync(lambda: K9.pyr_down(cur))
+                ref = plain.pyr_down(cur)
+                equal = got.shape == ref.shape and torch.equal(bits(got), bits(ref))
+                log(f"K9 pyr_down {label} {tuple(cur.shape)}: bit-equal to the plain "
+                    f"version={equal}, no host sync")
+                if not equal:
+                    raise AssertionError(f"K9 ({label}, {tuple(cur.shape)}) differs from "
+                                         f"its plain version")
+                cur = ref
+
+        Ho, Wo = (H + 1) // 2, (W + 1) // 2
+        fn = lambda: K9.pyr_down(view)
+        res = dict(max_abs_err=0.0, ms=kernel_ms(fn, "pyr_down_kernel", 20),
+                   call_ms=cuda_ms(fn, 20), plain_ms=cuda_ms(lambda: plain.pyr_down(view), 3),
+                   library_ms=None,
+                   **bound((H * W + Ho * Wo) * 3 * 4, 9.0 * 3 * Ho * (W + Wo)))
+        report(f"K9 pyr_down {label} {H}x{W}x3", res, card)
+
+        def k9_pair():
+            return [K9.build_pyramid(view, L), K9.build_pyramid(view, L),
+                    K9.build_pyramid(mask, L, quantize=True),
+                    K9.build_pyramid(mask, L, quantize=True)]
+
+        def plain_pair():
+            return [plain_build_pyramid(view, L), plain_build_pyramid(view, L),
+                    plain_build_pyramid(mask, L, True), plain_build_pyramid(mask, L, True)]
+
+        n0 = K9.pyr_down.launches
+        got = k9_pair()
+        launches = K9.pyr_down.launches - n0
+        equal = all(torch.equal(bits(a), bits(b))
+                    for ga, ra in zip(got, plain_pair()) for a, b in zip(ga, ra))
+        res.update(pair_launches=launches, pair_equal=equal,
+                   pair_ms=cuda_ms(k9_pair, 10), pair_host_ms=timed(k9_pair)[1] * 1e3,
+                   plain_pair_ms=cuda_ms(plain_pair, 2),
+                   plain_pair_host_ms=timed(plain_pair)[1] * 1e3)
+        log(f"K9 {label}: a pair's four pyramids ({L} levels) in {launches} launches, "
+            f"bit-equal to the plain ones={equal}: {res['pair_ms']:.3f} ms on the card's "
+            f"clock ({res['pair_host_ms']:.3f} ms synchronized host), the plain version's "
+            f"{res['plain_pair_ms']:.2f} ms ({res['plain_pair_host_ms']:.2f} ms) ({card})")
+        if not equal or launches != 4 * (L - 1):
+            raise AssertionError(f"K9's pyramids ({label}) differ from the plain ones or "
+                                 f"took {launches} launches")
+        out[label] = res
+        del view, mask, got
+
+    args = scene_args("myself")
+    n0 = K9.pyr_down.launches
+    with_k9 = pair_digests(pipeline.match_pair(*args, device="cuda"))
+    launches = K9.pyr_down.launches - n0
+    real = pipeline.build_pyramid
+    pipeline.build_pyramid = plain_build_pyramid
+    try:
+        with_plain = pair_digests(pipeline.match_pair(*args, device="cuda"))
+    finally:
+        pipeline.build_pyramid = real
+    same = with_k9 == with_plain
+    log(f"myself match_pair: {launches} K9 launches; digests equal to a pair with the "
+        f"plain pyramids={same}")
+    if not same or launches != 4 * (preset("myself").pyramid_levels - 1):
+        raise AssertionError("match_pair with K9 differs from the plain pyramids' pair "
+                             "or launched K9 another number of times")
+    return dict(out["dome"], myself=out["myself"], match_pair_launches=launches,
+                pair_equal_plain_pyramids=same)
+
+
 def phase_dome(card: str) -> dict:
     """The 32-camera dome at its own size (`preset("dome32")`: 16 pairs,
     3840x2160, 5 levels, refine 30 + 30*level; `dome_preset_config`)
     through the production entry `reconstruct(mesh=...)` on one NCCL rank,
     by the dome tool's functions (`reconstruction_tpu_torch/tools/
-    demo_dome.py`): wall by stage, K8/K1/K3/K2/K6/K7 launches, peak device memory,
+    demo_dome.py`): wall by stage, K8/K9/K1/K3/K2/K6/K7 launches, peak device memory,
     cloud points, vertices and point-to-surface RMSE, held to the JAX
     tool's gates (finite vertices, more than 10,000, RMSE < 0.2).  Then
     pair (0, 1) through match_pair in float32 and with the bfloat16 cost
@@ -2820,7 +2939,7 @@ def phase_dome(card: str) -> dict:
                stats=rec.stats.records, comm=COMM.as_dict(),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     log(f"dome reconstruct(mesh=...), one NCCL rank: {wall:.2f} s wall ({card}); "
-        f"stage seconds {spans}; K8/K1/K3/K2/K6/K7 launches {_launch_line(launches)}; collectives "
+        f"stage seconds {spans}; K8/K9/K1/K3/K2/K6/K7 launches {_launch_line(launches)}; collectives "
         f"{out['comm']}; peak device "
         f"memory {out['peak_mem_gb']:.2f} GiB; fused cloud {summ['cloud_points']} points, "
         f"mesh {summ['verts']} vertices / {summ['faces']} faces, RMSE "
@@ -2856,7 +2975,7 @@ def phase_dome(card: str) -> dict:
                       drift=res.refine_drift.cpu().numpy().round(4).tolist())
         log(f"dome pair (0, 1) with a {dt} cost volume: {s:.2f} s wall, per-level ms "
             f"{[round(v, 1) for v in res.level_ms or ()]}, its own peak device memory "
-            f"{ab[dt]['peak_gb']:.3f} GiB, K8/K1/K3/K2/K6/K7 launches {_launch_line(n)}, refine "
+            f"{ab[dt]['peak_gb']:.3f} GiB, K8/K9/K1/K3/K2/K6/K7 launches {_launch_line(n)}, refine "
             f"drift p99 {ab[dt]['drift']}, cloud {ab[dt]['cloud']} ({card})")
         if not all(n.values()):
             raise AssertionError(f"the dome pair ({dt}) did not launch every kernel")
@@ -3144,7 +3263,8 @@ def main() -> int:
             "parallel_nccl": lambda: phase_parallel(card, backend="nccl"),
             "dome_sharded": lambda: phase_dome_sharded(card),
             "bench": lambda: phase_bench(card), "scaling": lambda: phase_scaling(card),
-            "rectify_map": lambda: phase_rectify_map(card)}
+            "rectify_map": lambda: phase_rectify_map(card),
+            "pyramid": lambda: phase_pyramid(card)}
     if sys.argv[1:]:
         for name in sys.argv[1:]:
             only[name]()
@@ -3187,6 +3307,8 @@ def main() -> int:
              replaces="reconstruction_tpu/stereo/constraints.py:334"),
         dict(name="rectify_map", route="cuda", source=src + "rectify_map.cu",
              replaces="reconstruction_tpu/core/remap.py:20 (host NumPy, no Pallas kernel)"),
+        dict(name="pyr_down", route="cuda", source=src + "pyramid.cu",
+             replaces="reconstruction_tpu/core/pyramid.py:22 (plain XLA, no Pallas kernel)"),
     ]
     # Launches on each kernel's main path: the myself pair (K1, K3, K2, K6, K7), BA
     # (K4), the tensor-core sweep's entry point (K5), and the dome's pair

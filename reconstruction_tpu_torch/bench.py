@@ -387,7 +387,8 @@ def run_stereo_only(reps: int, device="cuda") -> dict:
     """`match_one_level` over the pyramid of `synth_pair` at the finest
     size of `bench_config(1)`: one cold pass, then the best of ``reps``
     (the cold one when ``reps`` is 0, marked "warming")."""
-    from reconstruction_tpu_torch.core.pyramid import build_pyramid, quantize_u8
+    from reconstruction_tpu_torch.core.pyramid import quantize_u8
+    from reconstruction_tpu_torch.ops.pyramid import build_pyramid
     from reconstruction_tpu_torch.stereo.pipeline import match_one_level
 
     dev = _device(device)
@@ -397,8 +398,7 @@ def run_stereo_only(reps: int, device="cuda") -> dict:
     levels = cfg.pyramid_levels
     pyrL = build_pyramid(torch.as_tensor(imgL, device=dev), levels)
     pyrR = build_pyramid(torch.as_tensor(imgR, device=dev), levels)
-    pyrM = [quantize_u8(m) for m in build_pyramid(torch.as_tensor(mask, device=dev),
-                                                  levels)]
+    pyrM = build_pyramid(torch.as_tensor(mask, device=dev), levels, quantize=True)
     refine_scale = float(os.environ.get("RECON_BENCH_REFINE_SCALE", "1"))
     refine_impl = os.environ.get("RECON_REFINE_IMPL", "auto")
 

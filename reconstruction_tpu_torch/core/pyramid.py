@@ -4,6 +4,8 @@
 2x decimation.  Written as shifted slices summed in the reference's order
 rather than as a convolution: a float32 `conv2d` on the card runs in TF32
 through cuDNN, which would round values the reference keeps exact.
+These are the plain versions: for CUDA tensors `ops/pyramid` runs each
+step as one kernel, K9, with the same operations.
 """
 
 from __future__ import annotations

@@ -24,9 +24,10 @@ import torch
 
 from reconstruction_tpu_torch.config import NOMATCH, ReconstructionConfig
 from reconstruction_tpu_torch.core.morphology import erode_mask, valid_mask
-from reconstruction_tpu_torch.core.pyramid import build_pyramid, quantize_u8
+from reconstruction_tpu_torch.core.pyramid import quantize_u8
 from reconstruction_tpu_torch.core.rectify import RectifyResult, rectify_pair
 from reconstruction_tpu_torch.core.remap import rectify_inverse, remap_bilinear
+from reconstruction_tpu_torch.ops.pyramid import build_pyramid
 from reconstruction_tpu_torch.ops.rectify_map import rectify_map
 from reconstruction_tpu_torch.stereo.constraints import (
     median_filter, ordering_constraint, propagate_bounds,
@@ -246,8 +247,8 @@ def match_pair(
         with span("pyramid"):
             pyr0 = build_pyramid(imgs[0], L)
             pyr1 = build_pyramid(imgs[1], L)
-            mpyr0 = [quantize_u8(m) for m in build_pyramid(masks[0], L)]
-            mpyr1 = [quantize_u8(m) for m in build_pyramid(masks[1], L)]
+            mpyr0 = build_pyramid(masks[0], L, quantize=True)
+            mpyr1 = build_pyramid(masks[1], L, quantize=True)
 
         timed = device.type == "cuda"
         with span("levels"):

@@ -138,8 +138,8 @@ def level_kw(level: int) -> dict:
 
 
 def quantized_pyramids(img: torch.Tensor, levels: int) -> list:
-    from reconstruction_tpu_torch.core.pyramid import build_pyramid, quantize_u8
-    return [quantize_u8(t) for t in build_pyramid(img, levels)]
+    from reconstruction_tpu_torch.ops.pyramid import build_pyramid
+    return build_pyramid(img, levels, quantize=True)
 
 
 def recipe(mesh, axis: str, imgs0, imgs1, masks, levels: int):

@@ -109,6 +109,52 @@ def test_pyramid_and_quantize_exact(rng):
     assert_equal(jpyr.quantize_u8(J(noisy)), tpyr.quantize_u8(T(noisy)), "quantize")
 
 
+@pytest.mark.parametrize("shape", [(3, 3), (5, 4), (135, 240), (33, 47, 3), (3, 5, 1),
+                                   (27, 8, 3), (9, 11, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_pyr_down_plain_equals_jax_at_odd_shapes(rng, shape):
+    """The port's plain pyr_down (the reference K9 is held to on the card)
+    against the JAX package's, bit for bit: odd and smallest sides, 2-D and
+    1-, 2- and 3-channel inputs, values off the uint8 grid and negative
+    (normal floats only: XLA:CPU flushes subnormals)."""
+    img = rng.uniform(-300, 300, shape).astype(np.float32)
+    img.flat[::7] = np.round(img.flat[::7])
+    ref, got = jpyr.pyr_down(J(img)), tpyr.pyr_down(T(img))
+    assert tuple(got.shape) == (-(-shape[0] // 2), -(-shape[1] // 2), *shape[2:])
+    assert_equal(np.asarray(ref).view(np.uint32), to_np(got).view(np.uint32), "pyr_down")
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["levels", "quantized"])
+def test_pyramid_wrapper_on_the_cpu(rng, quantize):
+    """K9's wrapper on CPU tensors: the plain version's bits, no launch
+    (`pyr_down`, and `build_pyramid` with and without its rounded levels);
+    a side under 3 raises where the plain version raises; a device other
+    than the CPU or CUDA raises."""
+    import torch
+    from reconstruction_tpu_torch.ops import pyramid as K9
+    img = T(rng.uniform(-20, 280, (45, 38, 3)).astype(np.float32))
+    n0 = K9.pyr_down.launches
+    assert_equal(tpyr.pyr_down(img).numpy().view(np.uint32),
+                 K9.pyr_down(img).numpy().view(np.uint32), "K9 wrapper, CPU")
+    ref = tpyr.build_pyramid(img, 4)
+    if quantize:
+        ref = [tpyr.quantize_u8(p) for p in ref]
+    got = K9.build_pyramid(img, 4, quantize=quantize)
+    assert len(got) == 4
+    for lvl, (a, b) in enumerate(zip(ref, got)):
+        assert b.device.type == "cpu"
+        assert_equal(a.numpy().view(np.uint32), b.numpy().view(np.uint32), f"level {lvl}")
+    assert K9.pyr_down.launches == n0
+    for bad in ((2, 9), (9, 2), (1, 1, 3), (9,)):
+        x = torch.zeros(bad)
+        with pytest.raises((IndexError, RuntimeError)):
+            tpyr.pyr_down(x)
+        with pytest.raises((IndexError, RuntimeError)):
+            K9.pyr_down(x)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        K9.pyr_down(torch.zeros((8, 8), device="meta"))
+
+
 @pytest.mark.parametrize("se", [3, 4, 7, 24])
 def test_erode_mask_exact(rng, se):
     mask = np.where(rng.uniform(size=(64, 72)) < 0.93, 255.0, 0.0).astype(np.float32)

@@ -1,6 +1,6 @@
 """Kernels K1 (sweep), K3 (cost volume, slot-major), K2 (refine sweeps, T a
-launch), K4 (BA coupling), K5 (tensor-core sweep) and K8 (rectify maps)
-against their plain versions on the card.  CUDA only: skipped on a machine
+launch), K4 (BA coupling), K5 (tensor-core sweep), K8 (rectify maps) and
+K9 (pyramid step) against their plain versions on the card.  CUDA only: skipped on a machine
 without a GPU (there is no interpret mode for a CUDA kernel).  On the
 card (whose machine has no jax for tests/conftest.py):
 python -m pytest --noconftest tests/test_torch_kernels.py -q"""
@@ -453,3 +453,130 @@ def test_k8_pair_equals_host_maps(dev, tiny_pair, monkeypatch):
     with_host = pair_digests(pipeline.match_pair(*tiny_pair, device=dev))
     assert K8.rectify_map.launches == n0
     assert with_k8 == with_host
+
+
+# K9: one pyramid step.  Every level input of both rigs' pyramids, (H, W):
+# the `myself` preset's 1920x1280 down to 480x320, the dome's 2160x3840
+# down to 270x480; views have 3 channels, masks none.
+def _level_inputs():
+    from reconstruction_tpu_torch.config import preset
+    out = []
+    for name in ("myself", "dome32"):
+        cfg = preset(name)
+        W, H = cfg.finest_size
+        out += [(name, H >> k, W >> k) for k in range(cfg.pyramid_levels - 1)]
+    return out
+
+
+def _k9_values(kind, shape, seed):
+    """float32 test values: "grid" (the uint8 grid), "off" (off it, both
+    signs) or "edge" (bands of 8 rows of subnormals between bands of
+    magnitudes from 1e-45 to 3e37, both signs, some zeros)."""
+    rng = np.random.default_rng(seed)
+    if kind == "grid":
+        return rng.integers(0, 256, shape).astype(np.float32)
+    if kind == "off":
+        return rng.uniform(-300, 300, shape).astype(np.float32)
+    mag = 10.0 ** rng.uniform(-45, 37.5, shape)
+    x = (np.where(rng.uniform(size=shape) < 0.5, -mag, mag)).astype(np.float32)
+    x[rng.uniform(size=shape) < 0.05] = 0.0
+    band = np.arange(shape[0]) // 8 % 2 == 0        # bands of 8 rows of subnormals
+    sub = rng.integers(-(1 << 23) + 1, 1 << 23, x[band].shape, dtype=np.int32)
+    x[band] = np.abs(sub).astype(np.uint32).view(np.float32) * np.sign(sub)
+    return x
+
+
+@pytest.mark.parametrize("channels", [3, 1, None], ids=["C3", "C1", "2d"])
+@pytest.mark.parametrize("level", _level_inputs(), ids=lambda l: f"{l[0]}-{l[1]}x{l[2]}")
+def test_k9_pyr_down_equals_plain_at_level_inputs(dev, level, channels):
+    """K9 bit-equal to the plain pyr_down (its float64 fma32 taps, on the
+    card) at every level input of both rigs, with 3, 1 and no channel axis."""
+    from reconstruction_tpu_torch.core import pyramid as plain
+    from reconstruction_tpu_torch.ops import pyramid as K9
+    _, H, W = level
+    shape = (H, W) if channels is None else (H, W, channels)
+    x = torch.from_numpy(_k9_values("off", shape, H + W)).to(dev)
+    n0 = K9.pyr_down.launches
+    got = K9.pyr_down(x)
+    assert K9.pyr_down.launches == n0 + 1
+    ref = plain.pyr_down(x)
+    assert got.shape == ref.shape and got.is_contiguous()
+    _assert_bits_equal(ref.cpu().numpy(), got.cpu().numpy(), f"{level} {channels}")
+
+
+@pytest.mark.parametrize("kind", ["grid", "off", "edge"])
+@pytest.mark.parametrize("shape", [(3, 3), (3, 5, 3), (5, 3, 1), (135, 1081), (1081, 135, 3),
+                                   (5, 135, 2), (135, 5, 7), (1081, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k9_pyr_down_equals_plain_at_odd_sides(dev, shape, kind):
+    """K9 on the card bit-equal to the plain pyr_down on the CPU at odd and
+    smallest sides (3, 5, 135, 1081), 2-D and C of 1, 2, 3 and 7 (the
+    generic path), on and off the uint8 grid, with negatives, subnormals
+    and large magnitudes."""
+    from reconstruction_tpu_torch.core import pyramid as plain
+    from reconstruction_tpu_torch.ops import pyramid as K9
+    x = _k9_values(kind, shape, sum(shape))
+    ref = plain.pyr_down(torch.from_numpy(x)).numpy()
+    got = K9.pyr_down(torch.from_numpy(x).to(dev)).cpu().numpy()
+    _assert_bits_equal(ref, got, f"{shape} {kind}")
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["levels", "quantized"])
+@pytest.mark.parametrize("rig", ["myself", "dome32"])
+def test_k9_build_pyramid_card_equals_cpu(dev, rig, quantize):
+    """`build_pyramid` on the card (one K9 launch a step, the rounded levels
+    from the same launches) equals the plain one on the CPU, level by
+    level, for a view (3 channels) and a mask (2-D) at the rig's finest
+    size (the dome's at half size: every level shape below it is tested
+    above)."""
+    from reconstruction_tpu_torch.config import preset
+    from reconstruction_tpu_torch.core import pyramid as plain
+    from reconstruction_tpu_torch.ops import pyramid as K9
+    cfg = preset(rig)
+    W, H = cfg.finest_size
+    L = cfg.pyramid_levels
+    if rig == "dome32":
+        H, W, L = H // 2, W // 2, L - 1
+    for shape, kind in (((H, W, 3), "grid"), ((H, W), "off")):
+        x = torch.from_numpy(_k9_values(kind, shape, H))
+        ref = plain.build_pyramid(x, L)
+        if quantize:
+            ref = [plain.quantize_u8(p) for p in ref]
+        n0 = K9.pyr_down.launches
+        got = K9.build_pyramid(x.to(dev), L, quantize=quantize)
+        assert K9.pyr_down.launches == n0 + L - 1
+        assert len(got) == L
+        for lvl, (a, b) in enumerate(zip(ref, got)):
+            assert b.device.type == "cuda"
+            _assert_bits_equal(a.numpy(), b.cpu().numpy(), f"{rig} {shape} level {lvl}")
+
+
+def test_k9_launches_one_a_step_on_a_cuda_pair_none_on_a_cpu_pair(dev, tiny_pair):
+    """match_pair builds its four pyramids (two views, two masks) with one
+    K9 launch a step on the card, none on the CPU."""
+    from reconstruction_tpu_torch.ops import pyramid as K9
+    from reconstruction_tpu_torch.stereo.pipeline import match_pair
+    steps = tiny_pair[0].pyramid_levels - 1
+    n0 = K9.pyr_down.launches
+    match_pair(*tiny_pair, device=dev)
+    torch.cuda.synchronize()
+    assert K9.pyr_down.launches == n0 + 4 * steps
+    match_pair(*tiny_pair, device="cpu")
+    assert K9.pyr_down.launches == n0 + 4 * steps
+
+
+def test_k9_raises_where_plain_raises(dev):
+    """A side under 3 or a single axis raises on the card as the plain
+    version raises on the CPU, with no launch; no channel at all gives the
+    plain version's empty result."""
+    from reconstruction_tpu_torch.core import pyramid as plain
+    from reconstruction_tpu_torch.ops import pyramid as K9
+    n0 = K9.pyr_down.launches
+    for bad in ((2, 9), (9, 2), (1, 1, 3), (9,), (0, 5)):
+        with pytest.raises((IndexError, RuntimeError)):
+            plain.pyr_down(torch.zeros(bad))
+        with pytest.raises((IndexError, RuntimeError)):
+            K9.pyr_down(torch.zeros(bad, device=dev))
+    assert K9.pyr_down.launches == n0
+    got = K9.pyr_down(torch.zeros((5, 7, 0), device=dev))
+    assert got.shape == plain.pyr_down(torch.zeros((5, 7, 0))).shape == (3, 4, 0)
