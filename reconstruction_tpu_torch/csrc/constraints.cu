@@ -1,4 +1,5 @@
-// K6 and K7: the stereo matcher's row-sequential constraint passes.
+// K6 and K7: the stereo matcher's row-sequential constraint passes; K10-K12:
+// its pixel-local and row-local ones.
 //
 // K6, the ordering constraint (`CStereoMatching.cpp:310-368`): on each row,
 // repeatedly delete the valid point that crosses the most others (the first
@@ -72,6 +73,29 @@
 // +-1e9 reset sentinels round, and those never win), so the outputs equal
 // the plain version's at every mask-valid source pixel
 // (tests/test_torch_constraint_kernels.py models the kernels' bracketing).
+//
+// K10, the smoothness pass (`CStereoMatching.cpp:370-448`), a thread a
+// pixel: the 8 neighbours' links (valid: inside the image and the box, not
+// NOMATCH) and violations (|d - d_q| > 1), then the kill rule.  K11, one
+// `uniqueness_constraint` call (`:450-497`): forward, reverse on the updated
+// forward map, forward again, a block a row with both rows in shared memory.
+// A pass gives each column its flags g (valid, no hit among the three
+// gathered target columns, east check) and b (g and the west check) by
+// ballots, 32 columns a word; x is killed iff the last b at or before it
+// comes after the last ~g, two running maxima that the block scans over the
+// words (each thread folds a few words, a warp scan, the warps' totals) and
+// each column finishes within its word.  K12, one iteration of the masked
+// median (`:763-815`), a thread a pixel: its 2-column x 3-row window (0.0
+// outside the image, as `shifted` fills), NOMATCH as 1e9, a 12-comparator
+// sorting network on (value, window index), so ties keep their window order
+// as the plain version's stable sort does, then the truncated mean of the
+// middle ranks and the fill and kill rules.  They replace the plain
+// versions' ~35 launches a uniqueness pass, ~50 a smoothness pass and a
+// stacked sort a median; the plain versions stay the CPU path.
+//
+// Exactness.  K10-K12 are comparisons, integer counts and selects, plus the
+// plain versions' own float32 operations one for one (d - d_q, p + 0.5,
+// v + p, lo + hi, / 2): bit-equal to the plain versions everywhere.
 #include "common.cuh"
 
 #define RTT_CONSTRAINTS_MAX_W 16384   // ops/constraints.py MAX_WIDTH
@@ -597,6 +621,254 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// ---------------------------------------------------------------------------
+// K10-K12
+// ---------------------------------------------------------------------------
+
+constexpr int PIX_THREADS = 256;    // K10 and K12: a thread a pixel
+constexpr int K11_THREADS = 256;    // K11: threads a row, at most
+constexpr float K12_BIG = 1e9f;     // an invalid window value sorts last
+
+__device__ __forceinline__ bool in_image(int y, int x, int H, int W) {
+  return y >= 0 && y < H && x >= 0 && x < W;
+}
+
+__global__ void __launch_bounds__(PIX_THREADS)
+smoothness_kernel(const float* __restrict__ disp, float* __restrict__ out,
+                  const int* __restrict__ pYL, const int* __restrict__ pYR,
+                  const int* __restrict__ pXL, const int* __restrict__ pXR, int H, int W) {
+  const size_t i = (size_t)blockIdx.x * PIX_THREADS + threadIdx.x;
+  if (i >= (size_t)H * W) return;
+  const int y = (int)(i / W), x = (int)(i - (size_t)y * W);
+  const Box box = load_box(pYL, pYR, pXL, pXR);
+  const float d = disp[i];
+  int links = 0, viol = 0;
+#pragma unroll
+  for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+    for (int dx = -1; dx <= 1; ++dx) {
+      if (dy == 0 && dx == 0) continue;
+      const int yy = y + dy, xx = x + dx;
+      if (!in_image(yy, xx, H, W) || !box.row(yy) || !box.col(xx)) continue;
+      const float nb = disp[(size_t)yy * W + xx];
+      if (nb == RTT_NOMATCH) continue;
+      ++links;
+      viol += fabsf(__fsub_rn(d, nb)) > 1.0f;
+    }
+  }
+  const bool kill = box.row(y) && box.col(x) && (links == 0 || 2 * viol > links);
+  out[i] = kill ? RTT_NOMATCH : d;
+}
+
+// The last set bit of word w as a column, -1 for none.
+__device__ __forceinline__ int k11_last(unsigned bits, int w) {
+  return bits ? (w << 5) + 31 - __clz(bits) : -1;
+}
+
+// The exclusive running maxima (a, b) over the block's threads in order,
+// -1 before the first: a warp scan by shuffles, then the warps' totals.
+// Every thread of the block calls it.
+__device__ __forceinline__ int2 k11_exclusive_max(int a, int b, int* wtot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ua = __shfl_up_sync(FULL, a, off), ub = __shfl_up_sync(FULL, b, off);
+    if (lane >= off) {
+      a = max(a, ua);
+      b = max(b, ub);
+    }
+  }
+  if (lane == 31) {
+    wtot[2 * warp] = a;
+    wtot[2 * warp + 1] = b;
+  }
+  __syncthreads();
+  int ea = __shfl_up_sync(FULL, a, 1), eb = __shfl_up_sync(FULL, b, 1);
+  if (lane == 0) ea = eb = -1;
+  for (int w = 0; w < warp; ++w) {
+    ea = max(ea, wtot[2 * w]);
+    eb = max(eb, wtot[2 * w + 1]);
+  }
+  __syncthreads();                 // wtot is free for the next pass
+  return make_int2(ea, eb);
+}
+
+// One `_uniqueness_pass` on a row in shared memory: p (the source row,
+// updated in place) against q (the target row), the source's box and the
+// target's column margins.  gw, bw: the flags' words; cb, cbr: each word's
+// carries (the last b and the last ~g before it).
+__device__ void k11_pass(float* p, const float* q, Box src, int tXL, int tXR, int y, int W,
+                         unsigned* gw, unsigned* bw, int* cb, int* cbr, int* wtot) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int NW = (W + 31) >> 5;
+  const bool row_in = src.row(y);
+  for (int x0 = 0; x0 < NW * 32; x0 += nt) {
+    const int x = x0 + tid;
+    bool g = false, b = false;
+    if (x < W) {
+      const float pv = p[x];
+      const bool valid = pv != RTT_NOMATCH && row_in && src.col(x);
+      const int bL = max((int)truncf(__fadd_rn(pv, 0.5f)) + x - 1, tXL);
+      const int bR = min(bL + 2, tXR);
+      bool hit = false;
+      float q_mid = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float v = q[min(max(bL + k, 0), W - 1)];
+        if (k == 1) q_mid = v;
+        hit |= bL + k <= bR && valid && fabsf(__fadd_rn(v, pv)) < 2.0f;
+      }
+      const float pe = x + 1 < W ? p[x + 1] : 0.0f;
+      const float pw = x > 0 ? p[x - 1] : 0.0f;
+      g = valid && !hit && fabsf(__fadd_rn(q_mid, pe)) >= 2.0f;
+      b = g && fabsf(__fadd_rn(q_mid, pw)) >= 2.0f;
+    }
+    const unsigned G = __ballot_sync(FULL, g), B = __ballot_sync(FULL, b);
+    if (lane == 0 && x < NW * 32) {
+      gw[x >> 5] = G;
+      bw[x >> 5] = B;
+    }
+  }
+  __syncthreads();
+
+  // Each thread's run of words: fold, scan the threads, replay the carries.
+  const int per = (NW + nt - 1) / nt;
+  const int w0 = min(tid * per, NW), w1 = min(w0 + per, NW);
+  int lb = -1, lg = -1;
+  for (int w = w0; w < w1; ++w) {
+    lb = max(lb, k11_last(bw[w], w));
+    lg = max(lg, k11_last(~gw[w], w));
+  }
+  int2 c = k11_exclusive_max(lb, lg, wtot);
+  for (int w = w0; w < w1; ++w) {
+    cb[w] = c.x;
+    cbr[w] = c.y;
+    c.x = max(c.x, k11_last(bw[w], w));
+    c.y = max(c.y, k11_last(~gw[w], w));
+  }
+  __syncthreads();
+
+  // kill = g & (last b > last ~g), each inclusive of the column.
+  for (int x = tid; x < W; x += nt) {
+    const int w = x >> 5, l = x & 31;
+    const unsigned G = gw[w];
+    if (!((G >> l) & 1u)) continue;
+    const unsigned upto = l == 31 ? FULL : (2u << l) - 1u;
+    const unsigned Bm = bw[w] & upto, NG = ~G & upto;
+    const int last_b = Bm ? k11_last(Bm, w) : cb[w];
+    const int last_break = NG ? k11_last(NG, w) : cbr[w];
+    if (last_b > last_break) p[x] = RTT_NOMATCH;
+  }
+  __syncthreads();
+}
+
+// A K11 block's shared memory: both rows, then the flags' words and the
+// words' carries.
+__host__ __device__ __forceinline__ size_t k11_smem(int W) {
+  const size_t nw = ((size_t)W + 31) / 32;
+  return (size_t)W * 2 * sizeof(float) + nw * 4 * sizeof(int);
+}
+
+__global__ void __launch_bounds__(K11_THREADS)
+uniqueness_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
+                  float* __restrict__ o0, float* __restrict__ o1,
+                  const int* __restrict__ aYL, const int* __restrict__ aYR,
+                  const int* __restrict__ aXL, const int* __restrict__ aXR,
+                  const int* __restrict__ bYL, const int* __restrict__ bYR,
+                  const int* __restrict__ bXL, const int* __restrict__ bXR, int W) {
+  extern __shared__ __align__(16) unsigned char k11_smem_buf[];
+  __shared__ int wtot[2 * (K11_THREADS / 32)];
+  const int NW = (W + 31) >> 5;
+  float* r0 = reinterpret_cast<float*>(k11_smem_buf);
+  float* r1 = r0 + W;
+  unsigned* gw = reinterpret_cast<unsigned*>(r1 + W);
+  unsigned* bw = gw + NW;
+  int* cb = reinterpret_cast<int*>(bw + NW);
+  int* cbr = cb + NW;
+  const int y = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const Box m0 = load_box(aYL, aYR, aXL, aXR), m1 = load_box(bYL, bYR, bXL, bXR);
+  const size_t off = (size_t)y * W;
+  for (int x = tid; x < W; x += nt) {
+    r0[x] = d0[off + x];
+    r1[x] = d1[off + x];
+  }
+  __syncthreads();
+  k11_pass(r0, r1, m0, m1.XL, m1.XR, y, W, gw, bw, cb, cbr, wtot);
+  k11_pass(r1, r0, m1, m0.XL, m0.XR, y, W, gw, bw, cb, cbr, wtot);
+  k11_pass(r0, r1, m0, m1.XL, m1.XR, y, W, gw, bw, cb, cbr, wtot);
+  for (int x = tid; x < W; x += nt) {
+    o0[off + x] = r0[x];
+    o1[off + x] = r1[x];
+  }
+}
+
+// Threads a K11 block: W rounded up to a warp, at most K11_THREADS.
+int k11_threads(int W) {
+  const int t = (W + 31) / 32 * 32;
+  return t < K11_THREADS ? t : K11_THREADS;
+}
+
+// (a, i) before (b, j): the plain sort's order (NaN last), ties by index.
+__device__ __forceinline__ bool k12_before(float a, int i, float b, int j) {
+  const bool lt = a < b || (!isnan(a) && isnan(b));
+  const bool gt = b < a || (!isnan(b) && isnan(a));
+  return lt || (!gt && i < j);
+}
+
+__device__ __forceinline__ void k12_cas(float* v, int* i, int a, int b) {
+  if (k12_before(v[b], i[b], v[a], i[a])) {
+    const float tv = v[a];
+    const int ti = i[a];
+    v[a] = v[b];
+    i[a] = i[b];
+    v[b] = tv;
+    i[b] = ti;
+  }
+}
+
+__global__ void __launch_bounds__(PIX_THREADS)
+median_kernel(const float* __restrict__ disp, const unsigned char* __restrict__ valid,
+              float* __restrict__ out, const int* __restrict__ pYL,
+              const int* __restrict__ pYR, const int* __restrict__ pXL,
+              const int* __restrict__ pXR, int H, int W) {
+  const size_t i = (size_t)blockIdx.x * PIX_THREADS + threadIdx.x;
+  if (i >= (size_t)H * W) return;
+  const int y = (int)(i / W), x = (int)(i - (size_t)y * W);
+  const Box box = load_box(pYL, pYR, pXL, pXR);
+  // The window in the plain version's stacking order: columns x-1, x,
+  // each by rows y-1, y, y+1.
+  float v[6];
+  int idx[6];
+  int k = 0;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int yy = y + j % 3 - 1, xx = x + j / 3 - 1;
+    const float d = in_image(yy, xx, H, W) ? disp[(size_t)yy * W + xx] : 0.0f;
+    const bool ok = d != RTT_NOMATCH;
+    k += ok;
+    v[j] = ok ? d : K12_BIG;
+    idx[j] = j;
+  }
+  // An optimal 6-input sorting network (12 comparators, depth 5).
+  k12_cas(v, idx, 0, 5); k12_cas(v, idx, 1, 3); k12_cas(v, idx, 2, 4);
+  k12_cas(v, idx, 1, 2); k12_cas(v, idx, 3, 4);
+  k12_cas(v, idx, 0, 3); k12_cas(v, idx, 2, 5);
+  k12_cas(v, idx, 0, 1); k12_cas(v, idx, 2, 3); k12_cas(v, idx, 4, 5);
+  k12_cas(v, idx, 1, 2); k12_cas(v, idx, 3, 4);
+  const int lo = max((k - 1) >> 1, 0), hi = min(k >> 1, 5);
+  float v_lo = v[0], v_hi = v[0];
+#pragma unroll
+  for (int j = 1; j < 6; ++j) {
+    v_lo = j == lo ? v[j] : v_lo;
+    v_hi = j == hi ? v[j] : v_hi;
+  }
+  const float med = truncf(__fdiv_rn(__fadd_rn(v_lo, v_hi), 2.0f));
+  const float d = disp[i];
+  const float o = d != RTT_NOMATCH ? (k <= 2 ? RTT_NOMATCH : med)
+                                   : (k >= 4 ? med : RTT_NOMATCH);
+  out[i] = valid[i] && box.row(y) && box.col(x) ? o : RTT_NOMATCH;
+}
+
 }  // namespace
 
 RTT_API int rtt_ordering(const void* disp, void* out, const void* YL, const void* YR,
@@ -646,5 +918,50 @@ RTT_API int rtt_propagate_bounds(const void* disp, const void* valid, const void
   propagate_bounds_rows_kernel<<<g.row_blocks, 32 * g.rows, smem, rtt_stream(stream)>>>(
       v, yl, yr, xl, xr, static_cast<const int*>(tXL), static_cast<const int*>(tXR), bl,
       br, max_step, H, W, g.rows, g.run);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static inline int rtt_pixel_blocks(int H, int W) {
+  return (int)(((size_t)H * W + PIX_THREADS - 1) / PIX_THREADS);
+}
+
+RTT_API int rtt_smoothness(const void* disp, void* out, const void* YL, const void* YR,
+                           const void* XL, const void* XR, int H, int W, void* stream) {
+  if (W < 1 || W > RTT_CONSTRAINTS_MAX_W || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  smoothness_kernel<<<rtt_pixel_blocks(H, W), PIX_THREADS, 0, rtt_stream(stream)>>>(
+      static_cast<const float*>(disp), static_cast<float*>(out),
+      static_cast<const int*>(YL), static_cast<const int*>(YR),
+      static_cast<const int*>(XL), static_cast<const int*>(XR), H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+RTT_API int rtt_uniqueness(const void* d0, const void* d1, void* o0, void* o1,
+                           const void* YL0, const void* YR0, const void* XL0,
+                           const void* XR0, const void* YL1, const void* YR1,
+                           const void* XL1, const void* XR1, int H, int W, void* stream) {
+  if (W < 1 || W > RTT_CONSTRAINTS_MAX_W || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = k11_smem(W);
+  cudaError_t err = allow_smem(uniqueness_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  uniqueness_kernel<<<H, k11_threads(W), smem, rtt_stream(stream)>>>(
+      static_cast<const float*>(d0), static_cast<const float*>(d1), static_cast<float*>(o0),
+      static_cast<float*>(o1), static_cast<const int*>(YL0), static_cast<const int*>(YR0),
+      static_cast<const int*>(XL0), static_cast<const int*>(XR0),
+      static_cast<const int*>(YL1), static_cast<const int*>(YR1),
+      static_cast<const int*>(XL1), static_cast<const int*>(XR1), W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+RTT_API int rtt_median(const void* disp, const void* valid, void* out, const void* YL,
+                       const void* YR, const void* XL, const void* XR, int H, int W,
+                       void* stream) {
+  if (W < 1 || W > RTT_CONSTRAINTS_MAX_W || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  median_kernel<<<rtt_pixel_blocks(H, W), PIX_THREADS, 0, rtt_stream(stream)>>>(
+      static_cast<const float*>(disp), static_cast<const unsigned char*>(valid),
+      static_cast<float*>(out), static_cast<const int*>(YL), static_cast<const int*>(YR),
+      static_cast<const int*>(XL), static_cast<const int*>(XR), H, W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,9 @@ _SIGNATURES = {
     "rtt_ordering": [_P] * 6 + [_I] * 2 + [_P],
     "rtt_propagate_bounds": [_P] * 10 + [_F] + [_I] * 2 + [_P],
     "rtt_propagate_bounds_layout": [_I, _I, _P],
+    "rtt_smoothness": [_P] * 6 + [_I] * 2 + [_P],
+    "rtt_uniqueness": [_P] * 12 + [_I] * 2 + [_P],
+    "rtt_median": [_P] * 7 + [_I] * 2 + [_P],
     "rtt_rectify_map": [_P] * 2 + [_I] * 2 + [_D] * 14 + [_P],
     "rtt_pyr_down": [_P] * 4 + [_I] * 3 + [_P],
 }

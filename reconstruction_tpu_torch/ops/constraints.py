@@ -1,8 +1,10 @@
-"""K6 (the ordering constraint's greedy crossing removal) and K7 (the
-disparity-bound propagation): the wrappers of `csrc/constraints.cu`, each
-beside its plain PyTorch version.
+"""K6 (the ordering constraint's greedy crossing removal), K7 (the
+disparity-bound propagation), K10 (the smoothness pass), K11 (one
+uniqueness call, its three passes) and K12 (one masked-median
+iteration): the wrappers of `csrc/constraints.cu`, each beside its plain
+PyTorch version.
 
-Both passes are sequential along a scanline in the reference
+K6's and K7's passes are sequential along a scanline in the reference
 (`CStereoMatching.cpp:310-368`, `:817-942`).  The plain versions are the
 JAX package's TPU formulation: a greedy loop stepped for all rows at once
 whose end is read back from the device every few steps, and associative
@@ -14,10 +16,18 @@ warp's 32 lanes), scans them across the segments and lanes and replays
 them (`k7_layout`).  The margins are read from the device: a call never
 waits for the device.
 
+K10-K12 are pixel- or row-local: K10 and K12 give a pixel to a thread,
+K11 a row to a block (both maps' rows in shared memory, the kill cascade
+as two running maxima scanned over the block).  Their plain versions are
+eager PyTorch: ~50 launches a smoothness pass, ~35 a uniqueness pass, a
+stacked sort a median iteration, and a `torch.tensor` constant on the
+maps' device, which on a card waits for the device.
+
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each
 wrapper adds the kernels it launches to its `.launches` attribute: one a
-K6 call, two a K7 call (the column pass, then the row pass).
+K6, K10 or K11 call, two a K7 call (the column pass, then the row pass),
+one a K12 iteration.
 
 Exactness.  K6 is comparisons and integer counts: bit-equal to
 `ordering_plain` everywhere.  K7 groups the scans' operator in another
@@ -26,7 +36,11 @@ round to another multiple of 64; every term that can win a max or min at
 an output is a sum of small integers, so the outputs are bit-equal to
 `propagate_bounds_plain` at every mask-valid source pixel, the pixels the
 reference defines them at (the CPU tests model the kernels' grouping and
-find them equal everywhere on their inputs).
+find them equal everywhere on their inputs).  K10-K12 are comparisons,
+integer counts, selects and the plain versions' own float32 operations
+one for one; K12's sorting network orders ties by window index, as the
+plain version's stable sort does: all three are bit-equal to their plain
+versions everywhere.
 """
 
 from __future__ import annotations
@@ -45,9 +59,10 @@ from reconstruction_tpu_torch.stereo.ncc import shifted
 _BIG = 1e9
 _NM = float(NOMATCH)
 # Widest row the kernels take: K6 keeps 14 bytes a column of a row in
-# shared memory (227 KB at most a block), K7's row pass 9, and K6's
-# (count, index) key and sort buffers hold an index in 16 bits
-# (csrc/constraints.cu, RTT_CONSTRAINTS_MAX_W).
+# shared memory (227 KB at most a block), K7's row pass 9, K11 8.5, and
+# K6's (count, index) key and sort buffers hold an index in 16 bits
+# (csrc/constraints.cu, RTT_CONSTRAINTS_MAX_W).  K10 and K12 take the same
+# rows as the others.
 MAX_WIDTH = 16384
 # K7's layout entries (`k7_layout`, `rtt_propagate_bounds_layout`).
 _K7_LAYOUT_KEYS = ("columns_a_block", "segments", "segment_rows", "run", "rows_a_block",
@@ -344,3 +359,201 @@ def propagate_bounds(
 
 
 propagate_bounds.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: smoothness
+# ---------------------------------------------------------------------------
+
+def smoothness_plain(disp: torch.Tensor, m: Margins) -> torch.Tensor:
+    """Kill pixels with no valid 8-neighbours, or with |d - d_q| > 1 to
+    more than half of them (`CStereoMatching.cpp:370-448`)."""
+    H, W = disp.shape
+    box = inner_box(m, H, W)
+    valid = (disp != NOMATCH) & box
+    dmask = torch.where(valid, disp, _nm(disp))
+    links = torch.zeros((H, W), dtype=torch.int32, device=disp.device)
+    viol = torch.zeros_like(links)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            nb = shifted(dmask, dy, dx)
+            nb_valid = shifted(valid, dy, dx)
+            links = links + nb_valid.to(torch.int32)
+            viol = viol + (nb_valid & ((disp - nb).abs() > 1)).to(torch.int32)
+    kill = box & ((links == 0) | (2 * viol > links))
+    return torch.where(kill, _nm(disp), disp)
+
+
+def _check_width(name: str, W: int) -> None:
+    if W > MAX_WIDTH:
+        raise ValueError(f"{name}: {W} columns, the kernel takes at most {MAX_WIDTH}")
+
+
+def smoothness(disp: torch.Tensor, m: Margins) -> torch.Tensor:
+    """K10 on CUDA tensors, `smoothness_plain` on CPU tensors.
+
+    disp: (H, W) float32; m: its view's margins, 0-d int32 tensors on
+    disp's device.  Rows up to MAX_WIDTH columns; a wider one raises."""
+    if _dispatch(disp):
+        return smoothness_plain(disp, m)
+    H, W = disp.shape
+    _check_width("smoothness", W)
+    dev = _require_cuda("smoothness", [(disp, torch.float32, (H, W))] + _margin_specs(m))
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    if H * W == 0:
+        return out
+    _build.launch("rtt_smoothness", disp.data_ptr(), out.data_ptr(),
+                  *[v.data_ptr() for v in m], H, W)
+    smoothness.launches += 1
+    return out
+
+
+smoothness.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: uniqueness
+# ---------------------------------------------------------------------------
+
+def uniqueness_pass_plain(p: torch.Tensor, q: torch.Tensor,
+                          m_src: Margins, m_tgt: Margins) -> torch.Tensor:
+    """One directional pass of `UniquenessContraint_`
+    (`CStereoMatching.cpp:463-497`), including the in-row kill cascade."""
+    H, W = p.shape
+    dev = p.device
+    box = inner_box(m_src, H, W)
+    valid = (p != NOMATCH) & box
+    x = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    base = torch.trunc(p + 0.5).to(torch.int32) + x - 1
+    bL = torch.maximum(base, m_tgt.XL.to(torch.int32))
+    bR = torch.minimum(bL + 2, m_tgt.XR.to(torch.int32))
+
+    hit = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    qv = []
+    for k in range(3):
+        col = torch.clamp(bL + k, 0, W - 1).long()
+        v = torch.gather(q, 1, col)
+        qv.append(v)
+        hit = hit | (((bL + k) <= bR) & valid & ((v + p).abs() < 2))
+
+    q_mid = qv[1]
+    c_east = (q_mid + shifted(p, 0, 1)).abs() >= 2       # original p[x+1]
+    c_west_orig = (q_mid + shifted(p, 0, -1)).abs() >= 2
+    # kill(x) = g(x) & (c_west_orig(x) | kill(x-1)), g = valid & ~hit & c_east:
+    # x is killed iff some b = g & c_west_orig at j <= x starts a run of g
+    # that reaches x, i.e. the last b comes after the last ~g.
+    g = valid & ~hit & c_east
+    b = g & c_west_orig
+    idx = torch.arange(W, dtype=torch.int32, device=dev)[None, :].expand(H, W)
+    neg = torch.full_like(idx, -1)
+    last_b = torch.cummax(torch.where(b, idx, neg), dim=1).values
+    last_break = torch.cummax(torch.where(~g, idx, neg), dim=1).values
+    kill = g & (last_b > last_break)
+    return torch.where(kill, _nm(p), p)
+
+
+def uniqueness_plain(d0: torch.Tensor, d1: torch.Tensor, m0: Margins, m1: Margins
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward, reverse (using the updated forward map), forward again
+    (`CStereoMatching.cpp:450-461`)."""
+    d0 = uniqueness_pass_plain(d0, d1, m0, m1)
+    d1 = uniqueness_pass_plain(d1, d0, m1, m0)
+    d0 = uniqueness_pass_plain(d0, d1, m0, m1)
+    return d0, d1
+
+
+def uniqueness(d0: torch.Tensor, d1: torch.Tensor, m0: Margins, m1: Margins
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11 on CUDA tensors (the three passes in one launch, a block a
+    row), `uniqueness_plain` on CPU tensors.
+
+    d0, d1: (H, W) float32, the two directions' maps; m0, m1: their views'
+    margins, 0-d int32 tensors on the maps' device.  Rows up to MAX_WIDTH
+    columns; a wider one raises."""
+    if _dispatch(d0):
+        return uniqueness_plain(d0, d1, m0, m1)
+    H, W = d0.shape
+    _check_width("uniqueness", W)
+    dev = _require_cuda("uniqueness", [(d0, torch.float32, (H, W)),
+                                       (d1, torch.float32, (H, W))]
+                        + _margin_specs(m0, m1))
+    o0 = torch.empty((H, W), dtype=torch.float32, device=dev)
+    o1 = torch.empty((H, W), dtype=torch.float32, device=dev)
+    if H * W == 0:
+        return o0, o1
+    _build.launch("rtt_uniqueness", d0.data_ptr(), d1.data_ptr(), o0.data_ptr(),
+                  o1.data_ptr(), *[v.data_ptr() for v in m0],
+                  *[v.data_ptr() for v in m1], H, W)
+    uniqueness.launches += 1
+    return o0, o1
+
+
+uniqueness.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K12: masked median
+# ---------------------------------------------------------------------------
+
+# The window in the plain version's stacking order: columns x-1, x, each
+# by rows y-1, y, y+1 (K12 indexes it the same way).
+MEDIAN_OFFSETS = tuple((dy, dx) for dx in (-1, 0) for dy in (-1, 0, 1))
+
+
+def median_plain(disp: torch.Tensor, valid_mask: torch.Tensor, m: Margins,
+                 iterations: int = 1) -> torch.Tensor:
+    """Masked median with fill/kill rules (`CStereoMatching.cpp:763-815`)
+    over the reference's window: columns x-1, x by rows y-1..y+1.  An
+    even count takes the truncated mean of the middle two."""
+    H, W = disp.shape
+    box = inner_box(m, H, W)
+    compute = valid_mask & box
+    nm = _nm(disp)
+    d = disp
+    for _ in range(iterations):
+        vals = torch.stack([shifted(d, dy, dx) for dy, dx in MEDIAN_OFFSETS])
+        ok = vals != NOMATCH
+        k = ok.sum(dim=0)
+        svals = torch.sort(torch.where(ok, vals, torch.tensor(
+            _BIG, dtype=torch.float32, device=d.device)), dim=0).values
+        lo = torch.clamp((k - 1) // 2, 0, 5)
+        hi = torch.clamp(k // 2, 0, 5)
+        v_lo = torch.gather(svals, 0, lo[None]).squeeze(0)
+        v_hi = torch.gather(svals, 0, hi[None]).squeeze(0)
+        med = torch.trunc((v_lo + v_hi) / 2.0)
+        out = torch.where(d != NOMATCH,
+                          torch.where(k <= 2, nm, med),
+                          torch.where(k >= 4, med, nm))
+        d = torch.where(compute, out, nm)
+    return d
+
+
+def median(disp: torch.Tensor, valid_mask: torch.Tensor, m: Margins,
+           iterations: int = 1) -> torch.Tensor:
+    """K12 on CUDA tensors (one launch an iteration), `median_plain` on CPU
+    tensors.
+
+    disp: (H, W) float32; valid_mask: (H, W) bool; m: the view's margins,
+    0-d int32 tensors on disp's device.  Rows up to MAX_WIDTH columns; a
+    wider one raises."""
+    if _dispatch(disp):
+        return median_plain(disp, valid_mask, m, iterations)
+    H, W = disp.shape
+    _check_width("median", W)
+    dev = _require_cuda("median", [(disp, torch.float32, (H, W)),
+                                   (valid_mask, torch.bool, (H, W))] + _margin_specs(m))
+    d = disp
+    if H * W == 0:
+        return d
+    for _ in range(iterations):
+        out = torch.empty((H, W), dtype=torch.float32, device=dev)
+        _build.launch("rtt_median", d.data_ptr(), valid_mask.data_ptr(), out.data_ptr(),
+                      *[v.data_ptr() for v in m], H, W)
+        median.launches += 1
+        d = out
+    return d
+
+
+median.launches = 0

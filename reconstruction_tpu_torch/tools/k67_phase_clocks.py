@@ -203,13 +203,19 @@ def scene_args(scene: str):
             np.asarray(p.Rt0), np.asarray(p.K1), np.asarray(p.Rt1))
 
 
+# The pair path's constraint passes and their calls a level: one a
+# direction, but three uniqueness calls (after ordering, rematch, refine).
+CONSTRAINT_CALLS = {"smoothness_constraint": 2, "ordering_constraint": 2,
+                    "uniqueness_constraint": 3, "propagate_bounds": 2, "median_filter": 2}
+
+
 def keep_constraint_calls(run, shape):
-    """``run()`` with the pair path's `ordering_constraint` and
-    `propagate_bounds` wrapped so that their calls on an (H, W) = ``shape``
-    disparity (the finest level, both directions) are kept, inputs and
-    output: returns (``run()``, {name: [(args, output), ...]})."""
+    """``run()`` with the pair path's constraint passes (`CONSTRAINT_CALLS`)
+    wrapped so that their calls on an (H, W) = ``shape`` disparity (the
+    finest level) are kept, inputs and output: returns (``run()``,
+    {name: [(args, output), ...]})."""
     from reconstruction_tpu_torch.stereo import pipeline
-    names = ("ordering_constraint", "propagate_bounds")
+    names = tuple(CONSTRAINT_CALLS)
     real = {n: getattr(pipeline, n) for n in names}
     kept = {n: [] for n in names}
 
@@ -228,9 +234,10 @@ def keep_constraint_calls(run, shape):
     finally:
         for n, fn in real.items():
             setattr(pipeline, n, fn)
-    if not all(len(v) == 2 for v in kept.values()):
-        raise AssertionError(f"expected two calls of each pass on a {shape} disparity, "
-                             f"kept {[len(v) for v in kept.values()]}")
+    counts = {n: len(v) for n, v in kept.items()}
+    if counts != CONSTRAINT_CALLS:
+        raise AssertionError(f"expected {CONSTRAINT_CALLS} calls on a {shape} disparity, "
+                             f"kept {counts}")
     return res, kept
 
 

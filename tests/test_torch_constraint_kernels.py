@@ -1,7 +1,8 @@
-"""K6 (ordering) and K7 (bound propagation): the kernels' recurrences
+"""K6 (ordering), K7 (bound propagation), K10 (smoothness), K11 (the
+uniqueness call) and K12 (the masked median): the kernels' recurrences
 written out in numpy, one step at a time in the order the kernels run
-them, against the port's plain versions (`ops/constraints.py`) and the
-JAX package on the same seeded inputs.
+them, against the port's plain versions (`ops/constraints.py`) and, for
+K6 and K7, the JAX package on the same seeded inputs.
 
   * K6: a row's valid points compacted in column order, their crossing
     counts, then the greedy loop (first maximum, stop at 0), one row at a
@@ -29,13 +30,28 @@ it, is modelled beside those recurrences and held to the same references:
     folded during the forward replay and replayed after their scan.  At
     the kernels' geometry (128 segments, 32 lanes) and at small ones,
     which put segment boundaries inside the small cases.
+  * K10 (`k10_model`): each pixel's 8 neighbours read with the box test
+    of their own coordinates, links and violations counted, the kill rule.
+  * K11 (`k11_model`): each pass's flags g and b by column, packed into
+    words (a warp's ballot), each word's last b and last ~g, folded by
+    each thread over its run of words, scanned over the threads (a warp
+    scan, then the warps' totals), replayed into each word's carries, and
+    each column finished inside its word; at the kernel's geometry and at
+    small ones, on rows whose runs of g cross many words and threads.
+  * K12 (`k12_model`): the window's six values in stacking order, NOMATCH
+    as 1e9, the 12-comparator network on (value, window index), the
+    middle ranks; the network alone is held to `torch.sort` and its
+    gathers at every count of valid values, ties of +0.0 and -0.0 among
+    them.
 
 The `cuda` cases hold the kernels against their plain versions on the
 card at the `myself` preset's finest level (H x W = 1920x1280, its
 `finest_size` (1280, 1920) being width by height), at its transpose
 (1280x1920, rows of 1920 columns), at the dome's (2160x3840), at 5x37 and
-at 1917x1283 (neither a multiple of the segments).  On the card (whose
-machine has no jax for tests/conftest.py): python -m pytest --noconftest
+at 1917x1283 (neither a multiple of the segments); K10-K12 against their
+plain versions on the CPU at every level shape of both rigs, at 5x37 and
+on a row of MAX_WIDTH columns.  On the card (whose machine has no jax for
+tests/conftest.py): python -m pytest --noconftest
 tests/test_torch_constraint_kernels.py -q -m cuda
 """
 
@@ -46,7 +62,7 @@ import torch
 from reconstruction_tpu_torch.config import NOMATCH
 from reconstruction_tpu_torch.ops import constraints as K67
 from reconstruction_tpu_torch.stereo import constraints as tc
-from reconstruction_tpu_torch.stereo.margins import Margins
+from reconstruction_tpu_torch.stereo.margins import Margins, inner_box
 
 f32 = np.float32
 
@@ -367,6 +383,171 @@ def k7_segment_model(disp, valid, m_src, m_tgt, max_step=2, segments=K7_SEGMENTS
     return out[0], out[1], mask
 
 
+def _box(m, H, W):
+    YL, YR, XL, XR = [int(v) for v in m]
+    yy, xx = np.arange(H)[:, None], np.arange(W)[None, :]
+    return (yy >= YL) & (yy <= YR) & (xx >= XL) & (xx <= XR)
+
+
+def k10_model(disp: np.ndarray, m) -> np.ndarray:
+    """K10, a thread a pixel: each neighbour inside the image, inside the
+    box at its own coordinates and not NOMATCH is a link; a link with
+    |d - d_q| > 1 a violation."""
+    H, W = disp.shape
+    box = _box(m, H, W)
+    yy, xx = np.arange(H)[:, None], np.arange(W)[None, :]
+    links = np.zeros((H, W), np.int64)
+    viol = np.zeros((H, W), np.int64)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            ny, nx = yy + dy, xx + dx
+            inside = (ny >= 0) & (ny < H) & (nx >= 0) & (nx < W)
+            nyc, nxc = np.clip(ny, 0, H - 1), np.clip(nx, 0, W - 1)
+            nb = disp[nyc, nxc]
+            ok = inside & box[nyc, nxc] & (nb != NOMATCH)
+            links += ok
+            viol += ok & (np.abs(disp - nb) > f32(1))
+    kill = box & ((links == 0) | (2 * viol > links))
+    return np.where(kill, f32(NOMATCH), disp)
+
+
+# K11's geometry (csrc/constraints.cu: a ballot's word, a warp, K11_THREADS).
+K11_WORD, K11_WARP, K11_THREADS = 32, 32, 256
+
+
+def k11_threads(W: int, warp: int = K11_WARP, most: int = K11_THREADS) -> int:
+    """K11's threads a block: W rounded up to a warp, at most ``most``."""
+    return min(most, -(-W // warp) * warp)
+
+
+def k11_flags(p: np.ndarray, q: np.ndarray, ms, mt):
+    """K11's per-column flags of one pass: g (valid, no hit, east check)
+    and b (g and the west check), from the source row p and target row q."""
+    H, W = p.shape
+    tXL, tXR = int(mt[2]), int(mt[3])
+    valid = (p != NOMATCH) & _box(ms, H, W)
+    x = np.arange(W)[None, :]
+    bL = np.maximum(np.trunc(p + f32(0.5)).astype(np.int64) + x - 1, tXL)
+    bR = np.minimum(bL + 2, tXR)
+    rows = np.arange(H)[:, None]
+    hit = np.zeros((H, W), bool)
+    for k in range(3):
+        v = q[rows, np.clip(bL + k, 0, W - 1)]
+        if k == 1:
+            q_mid = v
+        hit |= (bL + k <= bR) & valid & (np.abs(v + p) < f32(2))
+    pe = np.concatenate([p[:, 1:], np.zeros((H, 1), f32)], 1)
+    pw = np.concatenate([np.zeros((H, 1), f32), p[:, :-1]], 1)
+    g = valid & ~hit & (np.abs(q_mid + pe) >= f32(2))
+    return g, g & (np.abs(q_mid + pw) >= f32(2))
+
+
+def _warp_exclusive_max(t: np.ndarray, warp: int) -> np.ndarray:
+    """Exclusive running max over axis 1 (the block's threads, -1 before
+    the first): Kogge-Stone within each warp, as the shuffles run it, then
+    the earlier warps' totals."""
+    H, n = t.shape
+    t = t.reshape(H, n // warp, warp).copy()
+    off = 1
+    while off < warp:
+        t[:, :, off:] = np.maximum(t[:, :, off:], t[:, :, :-off])
+        off *= 2
+    tot = t[:, :, -1]
+    before = np.concatenate([np.full((H, 1), -1), np.maximum.accumulate(tot, 1)[:, :-1]], 1)
+    e = np.concatenate([np.full((H, n // warp, 1), -1), t[:, :, :-1]], 2)
+    return np.maximum(e, before[:, :, None]).reshape(H, n)
+
+
+def k11_kill(g: np.ndarray, b: np.ndarray, word: int, warp: int, threads: int) -> np.ndarray:
+    """K11's kill cascade in its bracketing: the flags in words, each
+    word's last b and last ~g, each thread's run of words folded, scanned
+    over the threads, replayed into the words' carries, then each column's
+    last b and last ~g inside its word, or the word's carry."""
+    H, W = g.shape
+    NW = -(-W // word)
+    pad = np.zeros((H, NW * word - W), bool)
+    G = np.concatenate([g, pad], 1).reshape(H, NW, word)
+    B = np.concatenate([b, pad], 1).reshape(H, NW, word)
+    cols = np.arange(NW * word).reshape(NW, word)
+    per = -(-NW // threads)
+    carries = []
+    for bits in (B, ~G):
+        last = np.where(bits, cols, -1).max(-1)                    # (H, NW)
+        runs = np.concatenate([last, np.full((H, threads * per - NW), -1)], 1)
+        runs = runs.reshape(H, threads, per)
+        c = _warp_exclusive_max(runs.max(-1), warp)
+        cw = np.empty_like(runs)
+        for j in range(per):
+            cw[:, :, j] = c
+            c = np.maximum(c, runs[:, :, j])
+        carries.append(cw.reshape(H, -1)[:, :NW])
+    upto = np.arange(word)[None, :] <= np.arange(word)[:, None]    # [l, j]: j <= l
+    last_b, last_break = [
+        np.where(inword >= 0, inword, carry[:, :, None]) for inword, carry in (
+            (np.where(bits[:, :, None, :] & upto, cols[None, :, None, :], -1).max(-1), carry)
+            for bits, carry in ((B, carries[0]), (~G, carries[1])))]
+    return (G & (last_b > last_break)).reshape(H, -1)[:, :W]
+
+
+def k11_model(d0, d1, m0, m1, word=K11_WORD, warp=K11_WARP, threads=None):
+    """K11: the three passes (forward, reverse on the updated forward map,
+    forward again), each its flags, then its kill cascade."""
+    threads = threads or k11_threads(d0.shape[1], warp)
+    d0, d1 = d0.copy(), d1.copy()
+    for p, q, ms, mt in ((d0, d1, m0, m1), (d1, d0, m1, m0), (d0, d1, m0, m1)):
+        g, b = k11_flags(p, q, ms, mt)
+        p[k11_kill(g, b, word, warp, threads)] = NOMATCH
+    return d0, d1
+
+
+# K12's sorting network (csrc/constraints.cu: median_kernel).
+K12_NETWORK = ((0, 5), (1, 3), (2, 4), (1, 2), (3, 4), (0, 3), (2, 5), (0, 1), (2, 3),
+               (4, 5), (1, 2), (3, 4))
+
+
+def k12_sort(v: np.ndarray, idx: np.ndarray):
+    """The network on (value, window index) along axis 0: NaN after every
+    number, ties in window order."""
+    v, idx = v.copy(), idx.copy()
+    for a, b in K12_NETWORK:
+        lt = (v[b] < v[a]) | (~np.isnan(v[b]) & np.isnan(v[a]))
+        gt = (v[a] < v[b]) | (~np.isnan(v[a]) & np.isnan(v[b]))
+        swap = lt | (~gt & (idx[b] < idx[a]))
+        v[a], v[b] = np.where(swap, v[b], v[a]), np.where(swap, v[a], v[b])
+        idx[a], idx[b] = np.where(swap, idx[b], idx[a]), np.where(swap, idx[a], idx[b])
+    return v, idx
+
+
+def k12_pick(v: np.ndarray, ok: np.ndarray):
+    """(count, value at rank lo, value at rank hi) of windows (6, ...)."""
+    k = ok.sum(0)
+    key = np.where(ok, v, f32(1e9)).astype(f32)
+    s, _ = k12_sort(key, np.broadcast_to(np.arange(6).reshape((6,) + (1,) * (v.ndim - 1)),
+                                         v.shape))
+    lo, hi = np.maximum((k - 1) >> 1, 0), np.minimum(k >> 1, 5)
+    return k, np.take_along_axis(s, lo[None], 0)[0], np.take_along_axis(s, hi[None], 0)[0]
+
+
+def k12_model(disp: np.ndarray, valid: np.ndarray, m, iterations: int = 1) -> np.ndarray:
+    """K12, a thread a pixel an iteration: the window (0.0 outside the
+    image), the network, the truncated mean, the fill and kill rules."""
+    H, W = disp.shape
+    compute = valid & _box(m, H, W)
+    nm = f32(NOMATCH)
+    d = disp
+    for _ in range(iterations):
+        pad = np.pad(d, 1)                                         # 0.0 outside
+        v = np.stack([pad[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                      for dx in (-1, 0) for dy in (-1, 0, 1)])
+        k, v_lo, v_hi = k12_pick(v, v != NOMATCH)
+        med = np.trunc((v_lo + v_hi) / f32(2)).astype(f32)
+        out = np.where(d != NOMATCH, np.where(k <= 2, nm, med), np.where(k >= 4, med, nm))
+        d = np.where(compute, out, nm).astype(f32)
+    return d
+
+
 # ---------------------------------------------------------------------------
 # Inputs
 # ---------------------------------------------------------------------------
@@ -653,6 +834,186 @@ def test_phase_clock_marks_fit_the_kernels():
 
 
 # ---------------------------------------------------------------------------
+# K10-K12
+# ---------------------------------------------------------------------------
+
+def _bits(a) -> np.ndarray:
+    """The float32 bits (so that -0.0 and 0.0 differ)."""
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return np.ascontiguousarray(a, dtype=f32).view(np.uint32)
+
+
+def _tm(m) -> Margins:
+    return Margins(*[torch.tensor(int(v), dtype=torch.int32) for v in m])
+
+
+def _signed_zeros(d: np.ndarray, seed: int) -> np.ndarray:
+    """``d`` with about half its zeros made -0.0."""
+    rng = np.random.default_rng(seed)
+    d = d.copy()
+    d[(d == 0) & (rng.uniform(size=d.shape) < 0.5)] = f32(-0.0)
+    return d
+
+
+@pytest.mark.parametrize("label", CASES)
+def test_k10_model_exact(label):
+    """K10's per-pixel rule (each neighbour boxed at its own coordinates)
+    equals the plain smoothness pass bit for bit."""
+    d, _, ms, _ = _case(label)
+    d = _signed_zeros(d, 1)
+    want = K67.smoothness_plain(torch.from_numpy(d.copy()), _tm(ms))
+    np.testing.assert_array_equal(_bits(k10_model(d, ms)), _bits(want))
+
+
+def _run_end(W: int) -> int:
+    """The end of `_long_runs`' runs: p = 2x stays below 8,000, so that no
+    NOMATCH of q matches it."""
+    return min((W - 2) // 3, 4000)
+
+
+def _long_runs(rng, H=8, W=300):
+    """Random rows, and rows built so that one b starts a run of g that
+    goes on for ~W/3 columns: p(x) = 2x after a NOMATCH, the target's
+    q(3x) = 2 - 2x (no hit, the east check holds, the west check fails),
+    every other q NOMATCH; row 4's run is broken in its middle by a hit
+    (a q that matches p there), row 5's starts at column 1."""
+    d0 = rng.integers(-3, 4, (H, W)).astype(f32)
+    d1 = rng.integers(-3, 4, (H, W)).astype(f32)
+    x = np.arange(W)
+    e = _run_end(W)
+    for y, s in ((1, 1), (2, 7), (3, 40), (4, 2), (5, 1)):
+        d0[y], d1[y] = NOMATCH, NOMATCH
+        d0[y, s:e] = 2 * x[s:e]
+        d1[y, 3 * x[s:e]] = 2 - 2 * x[s:e]
+    d1[4, 3 * (e // 2) - 1] = -2 * (e // 2)
+    return d0, d1
+
+
+UNIQUENESS_CASES = ["scene0", "scene1", "long runs", "wide", "edge rows", "empty box",
+                    "empty target"]
+
+
+def _uniqueness_case(label):
+    """(d0, d1, m0, m1) of a uniqueness case, margins as lists of ints."""
+    from torch_parity import random_scene
+
+    from reconstruction_tpu_torch.stereo.margins import find_margin
+    if label.startswith("scene"):
+        rng = np.random.default_rng(100 + int(label[-1]))
+        _, _, vL, vR, d0 = random_scene(rng)
+        d1 = random_scene(rng)[4]
+        return (d0, d1) + tuple([int(v) for v in find_margin(torch.from_numpy(v), 2)]
+                                for v in (vL, vR))
+    rng = np.random.default_rng(UNIQUENESS_CASES.index(label))
+    if label == "long runs":
+        d0, d1 = _long_runs(rng)
+    elif label == "wide":                  # 282 words: two a thread at 256 threads
+        d0, d1 = _long_runs(rng, H=6, W=9000)
+    else:
+        d0 = rng.integers(-3, 4, (10, 70)).astype(f32)
+        d1 = -np.roll(d0, 2, 1) + rng.integers(-1, 2, (10, 70)).astype(f32)
+        for d in (d0, d1):
+            d[rng.uniform(size=d.shape) < 0.2] = NOMATCH
+        d0[0], d1[3] = NOMATCH, NOMATCH                             # all-NOMATCH rows
+        d0[1], d1[2] = rng.integers(-3, 4, (2, 70)).astype(f32)     # all-valid rows
+    H, W = d0.shape
+    full = [0, H - 1, 0, W - 1]
+    m0 = {"empty box": [H - 3, 2, W - 3, 2]}.get(label, full)
+    m1 = {"empty target": [0, H - 1, W - 3, 2]}.get(label, full)
+    return _signed_zeros(d0, 2), _signed_zeros(d1, 3), m0, m1
+
+
+@pytest.mark.parametrize("geometry", [(K11_WORD, K11_WARP, None), (8, 4, 8), (4, 2, 2)],
+                         ids=["kernel", "8x4x8", "4x2x2"])
+@pytest.mark.parametrize("label", UNIQUENESS_CASES)
+def test_k11_block_scan_model_exact(label, geometry):
+    """K11's three passes with the kill cascade in its bracketing (words of
+    flags, each thread's run of words, the warp and block scans, the
+    in-word finish) equal the plain uniqueness call bit for bit, at the
+    kernel's geometry and at small ones, whose words, warps and runs put
+    chunk boundaries inside every case."""
+    d0, d1, m0, m1 = _uniqueness_case(label)
+    word, warp, threads = geometry
+    w0, w1 = K67.uniqueness_plain(torch.from_numpy(d0.copy()), torch.from_numpy(d1.copy()),
+                                  _tm(m0), _tm(m1))
+    g0, g1 = k11_model(d0, d1, m0, m1, word, warp, threads)
+    np.testing.assert_array_equal(_bits(g0), _bits(w0))
+    np.testing.assert_array_equal(_bits(g1), _bits(w1))
+
+
+def test_k11_long_runs_are_killed_whole():
+    """The long-run rows work as built: in the first pass one b kills its
+    whole run of g (rows 1-3 and 5), and a hit in the middle of row 4's
+    run stops the cascade there; so the carries cross every word and
+    thread of those rows."""
+    d0, d1 = _long_runs(np.random.default_rng(0))
+    W = d0.shape[1]
+    e = _run_end(W)
+    full = _tm([0, d0.shape[0] - 1, 0, W - 1])
+    out = K67.uniqueness_pass_plain(torch.from_numpy(d0), torch.from_numpy(d1), full,
+                                    full).numpy()
+    for y, s in ((1, 1), (2, 7), (3, 40), (5, 1)):
+        assert (out[y, s:e] == NOMATCH).all(), y
+    assert (out[4, 2:e // 2] == NOMATCH).all()
+    assert (out[4, e // 2 + 1:e] != NOMATCH).all()
+    g, b = k11_flags(d0, d1, [0, 7, 0, W - 1], [0, 7, 0, W - 1])
+    assert b[2, 7] and not b[2, 8:e].any() and g[2, 7:e].all()
+
+
+def test_k12_network_sorts():
+    """The 12 comparators sort every 0-1 input (so every input: the 0-1
+    principle), and every permutation of six distinct values."""
+    import itertools
+    ones = np.array(list(itertools.product([0, 1], repeat=6)), f32).T
+    s, _ = k12_sort(ones, np.broadcast_to(np.arange(6)[:, None], ones.shape))
+    assert (np.diff(s, axis=0) >= 0).all()
+    perms = np.array(list(itertools.permutations(range(6))), f32).T
+    s, idx = k12_sort(perms, np.broadcast_to(np.arange(6)[:, None], perms.shape))
+    assert (s == np.arange(6)[:, None]).all()
+    assert (np.take_along_axis(perms, idx, 0) == s).all()
+
+
+@pytest.mark.parametrize("k", range(7))
+def test_k12_network_equals_sort(k):
+    """With k of the six window values valid, the network's values at the
+    two middle ranks, and its whole order, equal `torch.sort`'s and the
+    plain version's gathers bit for bit, on values with many ties, +0.0
+    against -0.0 among them."""
+    rng = np.random.default_rng(k)
+    n = 20000
+    pool = np.array([0.0, -0.0, 1.0, -1.0, 2.0, 7.5, -3.0], f32)
+    v = pool[rng.integers(0, len(pool), (6, n))]
+    order = np.argsort(rng.uniform(size=(6, n)), axis=0)
+    ok = np.take_along_axis(np.arange(6)[:, None] < k, order, 0)
+    v = np.where(ok, v, f32(NOMATCH))
+    kk, v_lo, v_hi = k12_pick(v, v != NOMATCH)
+    assert (kk == k).all()
+    vals = torch.from_numpy(v)
+    tk = (vals != NOMATCH)
+    svals = torch.sort(torch.where(tk, vals, torch.tensor(1e9, dtype=torch.float32)),
+                       dim=0).values
+    lo = torch.clamp((tk.sum(0) - 1) // 2, 0, 5)
+    hi = torch.clamp(tk.sum(0) // 2, 0, 5)
+    np.testing.assert_array_equal(_bits(v_lo), _bits(torch.gather(svals, 0, lo[None])[0]))
+    np.testing.assert_array_equal(_bits(v_hi), _bits(torch.gather(svals, 0, hi[None])[0]))
+    s, _ = k12_sort(np.where(v != NOMATCH, v, f32(1e9)),
+                    np.broadcast_to(np.arange(6)[:, None], v.shape))
+    np.testing.assert_array_equal(_bits(s), _bits(svals))
+
+
+@pytest.mark.parametrize("label", CASES)
+def test_k12_model_exact(label):
+    """K12 (the window, the network, the rules) equals the plain masked
+    median bit for bit, one iteration and two, with signed zeros."""
+    d, v, ms, _ = _case(label)
+    d = _signed_zeros(d, 4)
+    for iters in (1, 2):
+        want = K67.median_plain(torch.from_numpy(d.copy()), torch.from_numpy(v.copy()),
+                                _tm(ms), iters)
+        np.testing.assert_array_equal(_bits(k12_model(d, v, ms, iters)), _bits(want))
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 
@@ -666,13 +1027,21 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(_build, "launch", refuse)
     d, v, ms, mt_ = _case("scene0")
     mt0, mt1 = _margins(*ms)[1], _margins(*mt_)[1]
-    n6, n7 = K67.ordering.launches, K67.propagate_bounds.launches
+    wrappers = (K67.ordering, K67.propagate_bounds, K67.smoothness, K67.uniqueness,
+                K67.median)
+    n = [w.launches for w in wrappers]
     D, V = torch.from_numpy(d), torch.from_numpy(v)
     assert torch.equal(tc.ordering_constraint(D, mt0), K67.ordering_plain(D, mt0))
     for a, b in zip(tc.propagate_bounds(D, V, mt0, mt1),
                     K67.propagate_bounds_plain(D, V, mt0, mt1)):
         assert torch.equal(a, b)
-    assert (K67.ordering.launches, K67.propagate_bounds.launches) == (n6, n7)
+    assert torch.equal(tc.smoothness_constraint(D, mt0), K67.smoothness_plain(D, mt0))
+    D1 = D.flip(1).contiguous()
+    for a, b in zip(tc.uniqueness_constraint(D, D1, mt0, mt1),
+                    K67.uniqueness_plain(D, D1, mt0, mt1)):
+        assert torch.equal(a, b)
+    assert torch.equal(tc.median_filter(D, V, mt0, 2), K67.median_plain(D, V, mt0, 2))
+    assert [w.launches for w in wrappers] == n
 
 
 # ---------------------------------------------------------------------------
@@ -715,8 +1084,84 @@ def test_kernels_equal_plain_on_card(dev, H, W):
     assert (K67.ordering.launches - n6, K67.propagate_bounds.launches - n7) == (1, 2)
     assert torch.equal(ok, K67.ordering_plain(d, m))
     BLp, BRp = K67.propagate_bounds_plain(ok, valid, m, m)
-    sel = valid & tc.inner_box(m, H, W)
+    sel = valid & inner_box(m, H, W)
     assert torch.equal(BL[sel], BLp[sel]) and torch.equal(BR[sel], BRp[sel])
+
+
+def _level_shapes():
+    """(H, W) of every pyramid level of the `myself` and `dome32` rigs."""
+    from reconstruction_tpu_torch.config import preset
+    out = []
+    for name in ("myself", "dome32"):
+        cfg = preset(name)
+        out += [cfg.level_size(lv)[::-1] for lv in range(cfg.pyramid_levels)]
+    return out
+
+
+def _pass_scene(dev, H, W, seed):
+    """The card scene with holes denser down the rows (every window count
+    of the median), some zeros signed, a target map that matches a shifted
+    copy of it (hits and kills for the uniqueness passes), and, where the
+    map has room, rows of all NOMATCH, all valid, and long runs of g
+    (`_long_runs`)."""
+    d0, valid = _card_scene(dev, H, W, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    yy = torch.arange(H, device=dev)[:, None].float()
+
+    def rand():
+        return torch.rand((H, W), generator=g, device=dev)
+
+    d0 = torch.where(rand() < yy / max(H, 1), torch.full_like(d0, NOMATCH), d0)
+    d0 = torch.where(rand() < 0.02, torch.zeros_like(d0), d0)
+    d0 = torch.where(rand() < 0.02, torch.full_like(d0, -0.0), d0)
+    shifted0 = torch.roll(d0, 45, 1)
+    noise = torch.randint(-1, 2, (H, W), generator=g, device=dev).float()
+    d1 = torch.where(shifted0 == NOMATCH, shifted0, -shifted0 + noise)
+    if H >= 8 and W >= 16:
+        r0, r1 = _long_runs(np.random.default_rng(seed), H=8, W=W)
+        d0[:8], d1[:8] = torch.from_numpy(r0).to(dev), torch.from_numpy(r1).to(dev)
+        d0[6], d1[7] = NOMATCH, NOMATCH
+    return d0.contiguous(), d1.contiguous(), valid
+
+
+def _cpu(m):
+    return Margins(*[v.cpu() for v in m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", _level_shapes() + [(5, 37), (8, K67.MAX_WIDTH)])
+def test_k10_k11_k12_equal_plain_on_card(dev, H, W):
+    """K10, K11 and K12 equal their plain versions, run on the same maps
+    moved to the CPU, bit for bit, with the rig's margins, with a box of
+    the whole map and with an empty box (YL > YR, XL > XR); one launch a
+    call (a K12 iteration)."""
+    from reconstruction_tpu_torch.stereo.margins import find_margin
+    d0, d1, valid = _pass_scene(dev, H, W, seed=H * 7 + W)
+    i32 = dict(dtype=torch.int32, device=dev)
+    full = Margins(*[torch.tensor(v, **i32) for v in (0, H - 1, 0, W - 1)])
+    empty = Margins(*[torch.tensor(v, **i32) for v in (H - 1, 0, W - 1, 0)])
+    D0, D1, V = d0.cpu(), d1.cpu(), valid.cpu()
+    for m in (find_margin(valid, 2), full, empty):
+        n = (K67.smoothness.launches, K67.uniqueness.launches, K67.median.launches)
+        s = K67.smoothness(d0, m)
+        u0, u1 = K67.uniqueness(d0, d1, m, full)
+        md = K67.median(d0, valid, m, 2)
+        assert (K67.smoothness.launches - n[0], K67.uniqueness.launches - n[1],
+                K67.median.launches - n[2]) == (1, 1, 2)
+        mc = _cpu(m)
+        np.testing.assert_array_equal(_bits(s.cpu()), _bits(K67.smoothness_plain(D0, mc)))
+        w0, w1 = K67.uniqueness_plain(D0, D1, mc, _cpu(full))
+        np.testing.assert_array_equal(_bits(u0.cpu()), _bits(w0))
+        np.testing.assert_array_equal(_bits(u1.cpu()), _bits(w1))
+        np.testing.assert_array_equal(_bits(md.cpu()), _bits(K67.median_plain(D0, V, mc, 2)))
+    if H >= 8 and W >= 16:             # the long runs were killed whole
+        u0 = K67.uniqueness(d0, d1, full, full)[0]
+        assert bool((u0[1, 1:_run_end(W)] == NOMATCH).all())
+    if H * W >= 100_000:               # every window count of the median
+        from reconstruction_tpu_torch.stereo.ncc import shifted
+        ok = torch.stack([shifted(D0, dy, dx) != NOMATCH
+                          for dy, dx in K67.MEDIAN_OFFSETS]).sum(0)
+        assert set(ok.unique().tolist()) == set(range(7))
 
 
 @pytest.mark.cuda
@@ -740,6 +1185,9 @@ def test_kernels_make_no_host_sync(dev):
     try:
         ok = K67.ordering(d, m)
         K67.propagate_bounds(ok, valid, m, m)
+        s = K67.smoothness(d, m)
+        u0, u1 = K67.uniqueness(s, ok, m, m)
+        K67.median(u0, valid, m, 2)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -753,3 +1201,9 @@ def test_too_wide_a_row_raises(dev):
         K67.ordering(d, m)
     with pytest.raises(ValueError):
         K67.propagate_bounds(d, d > 0, m, m)
+    with pytest.raises(ValueError):
+        K67.smoothness(d, m)
+    with pytest.raises(ValueError):
+        K67.uniqueness(d, d, m, m)
+    with pytest.raises(ValueError):
+        K67.median(d, d > 0, m)

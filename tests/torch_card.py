@@ -36,7 +36,7 @@ def pair_digests(res) -> dict:
 
 def counted(fn, bf16: bool = False):
     """(``fn()``, launches by kernel): the pair path's kernel counts (K8's,
-    K9's, K1's, K3's and K2's by C entry, K6's and K7's) set to 0 just
+    K9's, K1's, K3's and K2's by C entry, K6's, K7's and K10-K12's) set to 0 just
     before the call and read just after, K3 and K2 in the volume type of
     the path (float32, or bfloat16 with ``bf16``, named with a "_bf16"
     suffix).  Raises if ``fn`` launched K3 or K2 in the other type."""
@@ -49,7 +49,8 @@ def counted(fn, bf16: bool = False):
     dt = torch.bfloat16 if bf16 else torch.float32
     keyed = {"cost_volume": (K13.cost_volume, K13.VOLUME_ENTRIES[dt]),
              "refine_sweeps_fused": (K2.refine_sweeps_fused, K2.SWEEP_ENTRIES[dt])}
-    for w in (K8.rectify_map, K9.pyr_down, K13.ncc_sweep, K67.ordering, K67.propagate_bounds):
+    for w in (K8.rectify_map, K9.pyr_down, K13.ncc_sweep, K67.ordering, K67.propagate_bounds,
+              K67.smoothness, K67.uniqueness, K67.median):
         w.launches = 0
     for w, _ in keyed.values():
         w.launches.clear()
@@ -64,7 +65,9 @@ def counted(fn, bf16: bool = False):
                      ncc_sweep=K13.ncc_sweep.launches,
                      **{name + sfx: w.launches[entry] for name, (w, entry) in keyed.items()},
                      ordering=K67.ordering.launches,
-                     propagate_bounds=K67.propagate_bounds.launches)
+                     propagate_bounds=K67.propagate_bounds.launches,
+                     smoothness=K67.smoothness.launches, uniqueness=K67.uniqueness.launches,
+                     median=K67.median.launches)
 
 
 def bench_config():
@@ -208,13 +211,37 @@ def check_refine_call(call) -> None:
     assert torch.equal(dk, path_out), f"K2 ({dt}) differs from the path's output"
 
 
+def _bits_equal(a, b) -> bool:
+    """Equal float32 bits (-0.0 and 0.0 differ)."""
+    import torch
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def check_constraint_calls(kept) -> None:
-    """K6 and K7 on the calls `tools/k67_phase_clocks.keep_constraint_calls`
-    kept, without a host sync: K6 bit-equal to its plain version, K7 at
-    every mask-valid source pixel (its contract), both to the path's."""
+    """K6, K7 and K10-K12 on the calls
+    `tools/k67_phase_clocks.keep_constraint_calls` kept, without a host
+    sync: K6 bit-equal to its plain version, K7 at every mask-valid source
+    pixel (its contract), K10-K12 bit-equal to their plain versions run on
+    the calls' inputs moved to the CPU; each to the path's output."""
     import torch
     from reconstruction_tpu_torch.ops import constraints as K67
-    from reconstruction_tpu_torch.stereo.margins import inner_box
+    from reconstruction_tpu_torch.stereo.margins import Margins, inner_box
+
+    def cpu(args):
+        return [Margins(*[v.cpu() for v in a]) if isinstance(a, Margins)
+                else a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+
+    plain = {"smoothness_constraint": (K67.smoothness, K67.smoothness_plain),
+             "uniqueness_constraint": (K67.uniqueness, K67.uniqueness_plain),
+             "median_filter": (K67.median, K67.median_plain)}
+    for name, (kernel, twin) in plain.items():
+        for i, (args, path) in enumerate(kept[name]):
+            k = without_sync(lambda: kernel(*args))
+            outs = (k, path, twin(*cpu(args)))
+            k, path, p = [(o,) if isinstance(o, torch.Tensor) else o for o in outs]
+            for j, (a, b, c) in enumerate(zip(k, path, p)):
+                assert _bits_equal(a.cpu(), c), f"{name}, call {i}, map {j}: not the plain's"
+                assert _bits_equal(a, b), f"{name}, call {i}, map {j}: not the path's output"
     for i, ((d, m), path) in enumerate(kept["ordering_constraint"]):
         k = without_sync(lambda: K67.ordering(d, m))
         assert torch.equal(k, K67.ordering_plain(d, m)), f"K6, direction {i}"
